@@ -1,0 +1,38 @@
+"""vivit_tpu_torch: the PyTorch/CUDA port of ``vivit_tpu``.
+
+Low-rank GGN curvature access on an NVIDIA H100.  Module names mirror the
+JAX package's, so each counterpart is easy to find; the JAX package stays the
+reference and this package imports none of it.
+
+This slice ports the GGN eigenvalue path of CIFAR-10 3c3d end to end:
+
+* :func:`~vivit_tpu_torch.structured.eigvalsh_structured`: tapped
+  V-transform (:mod:`~vivit_tpu_torch.tapped`), exact CE loss factors with
+  null-space deflation (:mod:`~vivit_tpu_torch.ggn`,
+  :mod:`~vivit_tpu_torch.deflate`), the mixed Gram, and the eigensolver
+  (:func:`~vivit_tpu_torch.eig.full_eigh`);
+* :func:`~vivit_tpu_torch.eigdc.eigvalsh_dc`: the spectral
+  divide-and-conquer eigensolver (chain path, eigenvalues mode), whose
+  window solves run the hand-written Hopper Jacobi kernel
+  (:mod:`~vivit_tpu_torch.kernels.jacobi_cuda`, ``csrc/jacobi.cu``).
+
+Entry points run on the CUDA card unless the caller passes ``device="cpu"``.
+"""
+
+from vivit_tpu_torch.eig import full_eigh
+from vivit_tpu_torch.eigdc import eigh_dc, eigvalsh_dc
+from vivit_tpu_torch.losses import CrossEntropyLoss, Loss
+from vivit_tpu_torch.models import CNN3c3d
+from vivit_tpu_torch.structured import eigvalsh_structured
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "CNN3c3d",
+    "CrossEntropyLoss",
+    "Loss",
+    "eigh_dc",
+    "eigvalsh_dc",
+    "eigvalsh_structured",
+    "full_eigh",
+]

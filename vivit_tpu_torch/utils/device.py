@@ -1,0 +1,22 @@
+"""Device choice for the port's entry points."""
+
+import torch
+
+
+def resolve_device(device=None) -> torch.device:
+    """``device`` as a ``torch.device``; ``None`` means the current CUDA card.
+
+    Raises rather than run on the CPU when no card is present and none was
+    asked for: the CPU is a choice the caller makes (``device="cpu"``).
+    """
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "vivit_tpu_torch runs on a CUDA device by default and none is "
+                "available; pass device='cpu' to run on the CPU."
+            )
+        device = "cuda"
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
