@@ -15,8 +15,9 @@ Phases, each printed as it runs:
    N=128 with the headline settings (bf16 Gram, CE deflation, dc
    eigensolver).  Weights: ``cnn3c3d_flax_params(seed=0)`` (numpy) through
    ``params_from_flax``; data: numpy ``default_rng(0)``.  Checks the kernel
-   launch count, the guard, the structural zeros, and the deflated Gram's
-   eigenvalues against float64; times the step and its three stages.
+   launch count, the guard, the structural zeros, and both the deflated
+   Gram's dc eigenvalues and the entry's returned spectrum against float64;
+   times the step and its three stages.
 4. A JSON line of the kernels, then ``{"ok": true, "device": ...}`` last.
 
 Any failed check exits non-zero.  Without a CUDA device it exits 2 and
@@ -194,6 +195,14 @@ def phase_main_path(jc):
     print(f"deflated Gram {tuple(gram.shape)}: dc vs float64 max err/tol {ratio:.3f}, "
           f"{int((err > tol).sum())} violations", flush=True)
     check(ratio <= 1.0, f"dc eigenvalues off float64 (max err/tol {ratio:.2f})")
+    # the entry's own output: N structural zeros joined to the same spectrum
+    ref_all = torch.sort(torch.cat([ref.new_zeros(N), ref])).values
+    err = (evals.double() - ref_all).abs()
+    tol = ATOL * ref_all.abs().max() + RTOL * ref_all.abs()
+    ratio = (err / tol).max().item()
+    print(f"main path {evals.numel()} eigenvalues vs float64: max err/tol {ratio:.3f}, "
+          f"{int((err > tol).sum())} violations", flush=True)
+    check(ratio <= 1.0, f"main-path eigenvalues off float64 (max err/tol {ratio:.2f})")
 
     (ev32,), (info32,) = step(gram_precision=None)
     top = evals[-20:].double()

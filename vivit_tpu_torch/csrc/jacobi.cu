@@ -20,7 +20,7 @@
 //
 // What bounds it on Hopper: one CTA owns one matrix, and the sweeps are a
 // chain of sweeps*(m-1) dependent parallel steps (372 at m=32, 12 sweeps),
-// each three block-wide barriers apart.  The arithmetic is ~3.5 MFLOP per
+// each three block-wide barriers apart.  The arithmetic is ~2.4 MFLOP per
 // 32x32 matrix, microseconds at the card's f32 rate, so the kernel is
 // latency-bound on that chain, not bound by bytes or operations.  The design
 // keeps A and V in shared memory for the whole run (2*m*(m+1)*4 B, under

@@ -198,10 +198,11 @@ def batched_eigh_jacobi(A: torch.Tensor):
 
 
 def rotation_flops(b: int, m: int) -> int:
-    """Floating-point operations of one call: per pair and step, 3 per
-    updated element of two rows and two columns of ``A`` and two columns of
-    ``V`` (18·m), plus ~20 for ``(c, s)``."""
-    return b * SWEEPS * (m - 1) * (m // 2) * (18 * m + 20)
+    """Floating-point operations one call needs: per pair and step, 3 per
+    updated element of two rows of ``A`` and two columns of ``V`` (12·m),
+    plus ~20 for ``(c, s)`` and the pivot block.  ``JᵀAJ`` is symmetric, so
+    the two columns of ``A`` mirror its two rows and cost nothing more."""
+    return b * SWEEPS * (m - 1) * (m // 2) * (12 * m + 20)
 
 
 def io_bytes(b: int, m: int) -> int:
