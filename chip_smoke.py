@@ -8,9 +8,14 @@ Phases, each printed as it runs:
 1. **Card**: ``nvidia-smi`` name and power limit, then the build of the
    Jacobi kernel from ``vivit_tpu_torch/csrc/jacobi.cu`` (``nvcc``, sm_90a).
 2. **Kernel against its plain version** on the card at the window shapes of
-   the eigensolver, plus two degenerate inputs; times of the kernel, its
-   plain version and ``torch.linalg.eigh`` on the same batch (CUDA events,
-   median).
+   the eigensolver, plus two degenerate inputs; the sweeps the kernel ran
+   (its exact early exit) against those of the plain version under the same
+   rule; times of the kernel, its plain version and ``torch.linalg.eigh`` on
+   the same batch (CUDA events, median), beside the bound on the sweeps run
+   and on all 12.
+   Then a **shape sweep** for the dispatch envelope: the kernel against
+   ``torch.linalg.eigh`` at ``b in {1, 8, 37, 64}`` x ``m in {32, 48, 64}``,
+   ``b*m <= 2048``, one line per shape.
 3. **Main path**: ``eigvalsh_structured`` on full-width CIFAR-10 3c3d at
    N=128 with the headline settings (bf16 Gram, CE deflation, dc
    eigensolver).  Weights: ``cnn3c3d_flax_params(seed=0)`` (numpy) through
@@ -35,6 +40,7 @@ N = 128
 NUM_CLASSES = 10
 KERNEL_SHAPES = [(37, 32), (36, 32), (13, 32), (16, 48), (32, 64)]
 HEADLINE_SHAPES = [(37, 32), (36, 32)]  # the window solves of one n=1152 solve
+SWEEP_SHAPES = [(b, m) for m in (32, 48, 64) for b in (1, 8, 37, 64) if b * m <= 2048]
 # H100 SXM peaks (NVIDIA data sheet): f32 outside the tensor cores, HBM3
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
@@ -99,8 +105,9 @@ def phase_kernel(jc):
     timing = {}
     for b, m in KERNEL_SHAPES:
         A = torch.tensor(random_sym(b, m, seed=b * 100 + m), device="cuda")
-        ev, V = jc.batched_eigh_jacobi_cuda(A)
-        ev_p, _ = jc.batched_eigh_jacobi_plain(A)
+        ev, V, sw = jc.batched_eigh_jacobi_cuda(A, return_sweeps=True)
+        ev_p, _, sw_p = jc.batched_eigh_jacobi_plain(A, exit_early=True,
+                                                     return_sweeps=True)
         torch.cuda.synchronize()
         ref, err64 = check_eigh(A, ev, V, f"kernel [{b},{m},{m}]")
         norm = ref.abs().amax(dim=-1)
@@ -108,16 +115,24 @@ def phase_kernel(jc):
         check(bool((gap <= 1e-5 * norm).all()),
               f"[{b},{m},{m}]: kernel and plain differ by {gap.max().item():.2e}")
         max_err = max(max_err, gap.max().item())
+        most, least, most_p = int(sw.max()), int(sw.min()), int(sw_p.max())
+        check(abs(most - most_p) <= 1,
+              f"[{b},{m},{m}]: kernel ran {most} sweeps, plain {most_p}")
         line = (f"kernel [{b},{m},{m}]: max|kernel-plain| {gap.max().item():.3e}, "
-                f"max|kernel-f64| {err64:.3e}")
+                f"max|kernel-f64| {err64:.3e}, sweeps run {least}-{most} "
+                f"(plain {int(sw_p.min())}-{most_p})")
         if (b, m) in HEADLINE_SHAPES:
             t_k = cuda_ms(lambda: jc.batched_eigh_jacobi_cuda(A), reps=30)
-            t_p = cuda_ms(lambda: jc.batched_eigh_jacobi_plain(A), reps=3, warmup=1)
+            t_p = cuda_ms(lambda: jc.batched_eigh_jacobi_plain(A, exit_early=True),
+                          reps=3, warmup=1)
             t_l = cuda_ms(lambda: torch.linalg.eigh(A), reps=10)
-            bound, by = jc.bound_ms(b, m, PEAK_F32_FLOPS, PEAK_BYTES)
-            timing[(b, m)] = (t_k, t_p, t_l, bound, by)
+            # the bound on the sweeps each matrix ran, and on all 12
+            bound, by = jc.bound_ms(b, m, int(sw.sum()), PEAK_F32_FLOPS, PEAK_BYTES)
+            bound12, _ = jc.bound_ms(b, m, b * jc.SWEEPS, PEAK_F32_FLOPS, PEAK_BYTES)
+            timing[(b, m)] = (t_k, t_p, t_l, bound, by, most)
             line += (f"; kernel {t_k:.4f} ms, plain {t_p:.3f} ms, "
-                     f"torch.linalg.eigh {t_l:.4f} ms, bound {bound:.6f} ms ({by})")
+                     f"torch.linalg.eigh {t_l:.4f} ms, bound {bound:.6f} ms ({by}, "
+                     f"{int(sw.sum())} matrix-sweeps), 12-sweep bound {bound12:.6f} ms")
         print(line, flush=True)
 
     # degenerate inputs: tau == 0 everywhere at the start, and the skip
@@ -135,6 +150,23 @@ def phase_kernel(jc):
           "diagonal input: eigenvectors are not a permutation")
     print("kernel degenerate cases (tau == 0, diagonal skip): ok", flush=True)
     return max_err, timing
+
+
+def phase_shape_sweep(jc):
+    """Kernel against ``torch.linalg.eigh`` over the envelope's shapes (data
+    for the H100 dispatch decision; the dispatch does not read it)."""
+    import torch
+
+    for b, m in SWEEP_SHAPES:
+        A = torch.tensor(random_sym(b, m, seed=b * 1000 + m), device="cuda")
+        ev, V, sw = jc.batched_eigh_jacobi_cuda(A, return_sweeps=True)
+        torch.cuda.synchronize()
+        check_eigh(A, ev, V, f"shape sweep [{b},{m},{m}]")
+        t_k = cuda_ms(lambda: jc.batched_eigh_jacobi_cuda(A), reps=30)
+        t_l = cuda_ms(lambda: torch.linalg.eigh(A), reps=10)
+        print(f"shape sweep [{b},{m},{m}]: kernel {t_k:.4f} ms, torch.linalg.eigh "
+              f"{t_l:.4f} ms, kernel/eigh {t_k / t_l:.3f}, sweeps run "
+              f"{int(sw.min())}-{int(sw.max())}", flush=True)
 
 
 def phase_main_path(jc):
@@ -298,6 +330,7 @@ def main():
 
     try:
         max_err, timing = phase_kernel(jc)
+        phase_shape_sweep(jc)
         launches = phase_main_path(jc)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAIL: {exc}", file=sys.stderr)
@@ -311,7 +344,10 @@ def main():
         "replaces": "vivit_tpu/kernels/jacobi_pallas.py:178",
         "launches": launches,
         "max_abs_err": max_err,
-        # times: the sum over the two window launches of one n=1152 solve
+        # the most sweeps a matrix of the two window batches ran
+        "sweeps": max(x[5] for x in t),
+        # times: the sum over the two window launches of one n=1152 solve;
+        # the bound counts the sweeps each matrix ran
         "ms": sum(x[0] for x in t),
         "plain_ms": sum(x[1] for x in t),
         "bound_ms": sum(x[3] for x in t),
@@ -321,7 +357,7 @@ def main():
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
+        "count": 1}}), flush=True)
     return 0
 
 

@@ -1,149 +1,243 @@
 // Batched cyclic Jacobi eigendecomposition of small symmetric f32 matrices.
 //
-// Replaces the Pallas TPU kernel vivit_tpu/kernels/jacobi_pallas.py
+// Replaces the Pallas TPU kernel vivit_tpu/kernels/jacobi_pallas.py:178
 // (batched_eigh_jacobi).  It computes the same function: symmetrise each
-// [m, m] matrix, run `sweeps` parallel Jacobi sweeps with the rotation
-// formulas of `_rot_from` (copysign 45-degree rotation at tau == 0, identity
-// when |a_pq| <= 1e-30), and return the diagonal and the accumulated
-// rotations V (columns are eigenvectors).  Sorting happens in the wrapper,
-// as it does outside the pallas_call in the JAX package.  The pivot block
-// is written in Rutishauser's form (a_pp - t*a_pq, a_qq + t*a_pq, zeros):
-// the diagonal never passes through (c, s), whose c^2 + s^2 differs from 1
-// by an ulp and would otherwise drift the eigenvalues over the sweeps.
+// [m, m] matrix, run up to `max_sweeps` parallel Jacobi sweeps with the
+// rotation formulas of `_rot_from` (copysign 45-degree rotation at
+// tau == 0, identity when |a_pq| <= 1e-30), and return the diagonal and the
+// accumulated rotations V (columns are eigenvectors).  Sorting happens in
+// the wrapper, as it does outside the pallas_call in the JAX package.  The
+// pivot block is written in Rutishauser's form (a_pp - t*a_pq,
+// a_qq + t*a_pq, zeros): the diagonal never passes through (c, s), whose
+// c^2 + s^2 differs from 1 by an ulp and would otherwise drift the
+// eigenvalues over the sweeps.
 //
-// Ordering: the round-robin ("circle method") tournament.  Position 0 holds
-// index 0; positions 1..m-1 hold the other indices rotated by the step
-// number, and pair k joins positions k and m-1-k.  Every sweep of m-1
-// parallel steps meets every pair exactly once.  The TPU kernel's
-// odd-even transposition with fold-in swaps and its de-interleaved
-// quadrant layout exist for the TPU's vector unit and are not carried over.
+// Ordering: the round-robin ("circle method") tournament of
+// jacobi_cuda.round_robin_pairs.  The wrapper hands the kernel one sweep's
+// schedule, [m-1, m/2] pairs packed as p | q << 8, and each CTA copies it
+// into shared memory once.  The TPU kernel's odd-even transposition with
+// fold-in swaps and its de-interleaved quadrant layout exist for the TPU's
+// vector unit and are not carried over.
 //
-// What bounds it on Hopper: one CTA owns one matrix, and the sweeps are a
-// chain of sweeps*(m-1) dependent parallel steps (372 at m=32, 12 sweeps),
-// each three block-wide barriers apart.  The arithmetic is ~2.4 MFLOP per
-// 32x32 matrix, microseconds at the card's f32 rate, so the kernel is
-// latency-bound on that chain, not bound by bytes or operations.  The design
-// keeps A and V in shared memory for the whole run (2*m*(m+1)*4 B, under
-// 34 KB at m=64, static allocation), so no step touches device memory, and
-// pads rows to m+1 floats so the column pass is free of bank conflicts.
+// What bounds it on Hopper: one CTA owns one matrix in shared memory, and
+// the sweeps are a chain of up to 12*(m-1) dependent parallel steps.  The
+// arithmetic is ~2.4 MFLOP per 32x32 matrix, microseconds at the card's
+// f32 rate, so the kernel is bound by the latency of one step: one barrier
+// plus one 2x2 update, behind the (c, s) of its pair.  What the design does
+// about each part of that step:
+//
+// * m is a template parameter (32, 48, 64: the sizes the dispatch envelope
+//   sends), so every index in the step loop is shifts and constants, with
+//   no division or modulo by a runtime value.  Pairs come from the shared
+//   schedule table, the next step's read while the current one runs.
+// * One barrier per parallel step.  The m/2 rotations of a step are
+//   disjoint, so J^T A J splits into independent 2x2 blocks: block (k, l)
+//   at rows (p_k, q_k) and columns (p_l, q_l) becomes J_k^T A_kl J_l.  Lane
+//   j < m/2 of every warp computes the rotation of pair j from the current
+//   A (the same IEEE sqrtf and / as `_rot_from`), and each thread takes the
+//   (c, s) of its blocks from those lanes by warp shuffles, so no phase of
+//   m/2 threads waits behind a barrier.  Every one of the (m/2)^2 blocks is
+//   computed, rows first and then columns, as the plain version does, so
+//   the two apply the same arithmetic.  A ping-pongs between two shared
+//   buffers, so reading step s never races writing step s+1; V is updated
+//   in place by (row, pair), since the pair columns of a step are disjoint.
+//   Each thread takes the same number of blocks and of V items, and the
+//   loops over them are unrolled.
+// * An exact early exit.  A matrix stops at the end of the first sweep in
+//   which every rotation was the identity (__syncthreads_or of a per-thread
+//   flag as that sweep's last barrier).  Every later sweep would be exactly
+//   the identity (c = 1, s = 0, all off-diagonals already 0), so the result
+//   is that of running all sweeps.  The number of sweeps each matrix ran
+//   goes to `sweeps_run`.
+// * Rows are padded to m+1 floats, so the columns of V that a warp reads
+//   fall in distinct banks.  Three such buffers take 49,920 B at m=64, above
+//   the 48 KB of static shared memory, so shared memory is dynamic, with its
+//   limit raised once per instantiation.
+//
 // At the headline window batches (37 and 36 matrices) under a third of the
 // 132 SMs have work; packing several matrices per CTA or splitting one
 // matrix across a cluster is later work.
 
 #include <cuda_runtime.h>
 
+#include <cstddef>
+#include <cstdint>
+
 namespace {
 
-constexpr int kMaxM = 64;
-constexpr int kLd = kMaxM + 1;
-constexpr int kThreads = 256;
+// Threads of the CTA for each compiled m: every thread takes the same number
+// of 2x2 blocks of A ((m/2)^2 in all) and of (row, pair) items of V (m*m/2).
+template <int M> struct Threads;
+template <> struct Threads<32> { static constexpr int value = 256; };
+template <> struct Threads<48> { static constexpr int value = 288; };
+template <> struct Threads<64> { static constexpr int value = 512; };
 
-__device__ __forceinline__ int player(int pos, int step, int m) {
-  return pos == 0 ? 0 : ((pos - 1 + step) % (m - 1)) + 1;
+template <int M>
+constexpr size_t shared_bytes() {
+  return 3 * M * (M + 1) * sizeof(float) + (M - 1) * (M / 2) * sizeof(uint16_t);
 }
 
-__global__ void __launch_bounds__(kThreads)
-jacobi_kernel(const float* __restrict__ A, float* __restrict__ evals,
-              float* __restrict__ evecs, int m, int sweeps) {
-  __shared__ float a[kMaxM * kLd];
-  __shared__ float v[kMaxM * kLd];
-  __shared__ float cs[kMaxM / 2];
-  __shared__ float sn[kMaxM / 2];
-  __shared__ float dp[kMaxM / 2];
-  __shared__ float dq[kMaxM / 2];
-  __shared__ int pp[kMaxM / 2];
-  __shared__ int qq[kMaxM / 2];
+__device__ __forceinline__ float lane_of(float x, int src) {
+  return __shfl_sync(0xffffffffu, x, src);
+}
+
+__device__ __forceinline__ int lane_of(int x, int src) {
+  return __shfl_sync(0xffffffffu, x, src);
+}
+
+template <int M>
+__global__ void __launch_bounds__(Threads<M>::value)
+jacobi_kernel(const float* __restrict__ A, const uint16_t* __restrict__ schedule,
+              float* __restrict__ evals, float* __restrict__ evecs,
+              int* __restrict__ sweeps_run, int max_sweeps) {
+  constexpr int T = Threads<M>::value;
+  constexpr int H = M / 2;
+  constexpr int LD = M + 1;
+  constexpr int STEPS = M - 1;
+  constexpr int BLOCKS = H * H / T;  // 2x2 blocks of A per thread
+  constexpr int ITEMS = M * H / T;   // (row, pair) items of V per thread
+  static_assert(H * H % T == 0 && M * H % T == 0, "uneven split");
+  static_assert(T % 32 == 0 && H <= 32, "a warp holds every pair's rotation");
+
+  extern __shared__ float smem[];
+  float* src = smem;
+  float* dst = smem + M * LD;
+  float* v = smem + 2 * M * LD;
+  uint16_t* sched = reinterpret_cast<uint16_t*>(smem + 3 * M * LD);
 
   const int tid = threadIdx.x;
-  const int h = m / 2;
-  const float* Ab = A + static_cast<size_t>(blockIdx.x) * m * m;
-
-  for (int idx = tid; idx < m * m; idx += kThreads) {
-    const int i = idx / m, j = idx % m;
-    a[i * kLd + j] = 0.5f * (Ab[i * m + j] + Ab[j * m + i]);
-    v[i * kLd + j] = (i == j) ? 1.0f : 0.0f;
+  const int lane = tid & 31;
+  const float* Ab = A + static_cast<size_t>(blockIdx.x) * M * M;
+  for (int idx = tid; idx < M * M; idx += T) {
+    const int i = idx / M, j = idx % M;
+    src[i * LD + j] = 0.5f * (Ab[i * M + j] + Ab[j * M + i]);
+    v[i * LD + j] = (i == j) ? 1.0f : 0.0f;
   }
+  for (int idx = tid; idx < STEPS * H; idx += T) sched[idx] = schedule[idx];
   __syncthreads();
 
-  const int steps = sweeps * (m - 1);
-  for (int step = 0; step < steps; ++step) {
-    const int r = step % (m - 1);
-    if (tid < h) {
-      const int x = player(tid, r, m), y = player(m - 1 - tid, r, m);
-      const int p = min(x, y), q = max(x, y);
-      const float app = a[p * kLd + p];
-      const float aqq = a[q * kLd + q];
-      const float apq = a[p * kLd + q];
-      const bool small = fabsf(apq) <= 1e-30f;
-      const float tau = (aqq - app) / (small ? 1.0f : 2.0f * apq);
-      float t = (tau >= 0.0f ? 1.0f : -1.0f) /
-                (fabsf(tau) + sqrtf(1.0f + tau * tau));
-      if (small) t = 0.0f;
-      const float c = 1.0f / sqrtf(1.0f + t * t);
-      cs[tid] = c;
-      sn[tid] = t * c;
-      dp[tid] = app - t * apq;
-      dq[tid] = aqq + t * apq;
-      pp[tid] = p;
-      qq[tid] = q;
-    }
-    __syncthreads();
-
-    // rows: A <- J^T A (pairs are disjoint, so all rotations commute)
-    for (int idx = tid; idx < h * m; idx += kThreads) {
-      const int k = idx / m, j = idx % m;
-      const int p = pp[k], q = qq[k];
-      const float c = cs[k], s = sn[k];
-      const float xp = a[p * kLd + j], xq = a[q * kLd + j];
-      a[p * kLd + j] = c * xp - s * xq;
-      a[q * kLd + j] = s * xp + c * xq;
-    }
-    __syncthreads();
-
-    // columns: A <- A J and V <- V J; the pivot block of A exactly
-    for (int idx = tid; idx < 2 * h * m; idx += kThreads) {
-      const bool on_a = idx < h * m;
-      float* M = on_a ? a : v;
-      const int rem = idx % (h * m);
-      const int k = rem / m, i = rem % m;
-      const int p = pp[k], q = qq[k];
-      if (on_a && i == p) {
-        a[p * kLd + p] = dp[k];
-        a[p * kLd + q] = 0.0f;
-      } else if (on_a && i == q) {
-        a[q * kLd + p] = 0.0f;
-        a[q * kLd + q] = dq[k];
-      } else {
-        const float c = cs[k], s = sn[k];
-        const float xp = M[i * kLd + p], xq = M[i * kLd + q];
-        M[i * kLd + p] = c * xp - s * xq;
-        M[i * kLd + q] = s * xp + c * xq;
+  int next = lane < H ? sched[lane] : 0;
+  int sweep = 0;
+  while (sweep < max_sweeps) {
+    ++sweep;
+    int rotated = 0;
+    for (int r = 0; r < STEPS; ++r) {
+      // lane j < H: the rotation of pair j, as `_rot_from`
+      const int pair = next;
+      float c = 1.0f, s = 0.0f, dp = 0.0f, dq = 0.0f;
+      if (lane < H) {
+        next = sched[(r + 1 < STEPS ? r + 1 : 0) * H + lane];
+        const int p = pair & 0xff, q = pair >> 8;
+        const float app = src[p * LD + p];
+        const float aqq = src[q * LD + q];
+        const float apq = src[p * LD + q];
+        const bool small = fabsf(apq) <= 1e-30f;
+        const float tau = (aqq - app) / (small ? 1.0f : 2.0f * apq);
+        float t = (tau >= 0.0f ? 1.0f : -1.0f) /
+                  (fabsf(tau) + sqrtf(1.0f + tau * tau));
+        if (small) t = 0.0f;
+        c = 1.0f / sqrtf(1.0f + t * t);
+        s = t * c;
+        dp = app - t * apq;
+        dq = aqq + t * apq;
+        rotated |= !small;
       }
+
+      // A <- J^T A J, block (k, l) = J_k^T A_kl J_l into the other buffer
+#pragma unroll
+      for (int i = 0; i < BLOCKS; ++i) {
+        const int b = tid + i * T;
+        const int k = b / H, l = b % H;
+        const int pk = lane_of(pair, k), pl = lane_of(pair, l);
+        const float ck = lane_of(c, k), sk = lane_of(s, k);
+        const float cl = lane_of(c, l), sl = lane_of(s, l);
+        const float dpk = lane_of(dp, k), dqk = lane_of(dq, k);
+        const int p0 = pk & 0xff, q0 = pk >> 8;
+        const int p1 = pl & 0xff, q1 = pl >> 8;
+        if (k == l) {
+          dst[p0 * LD + p0] = dpk;
+          dst[p0 * LD + q0] = 0.0f;
+          dst[q0 * LD + p0] = 0.0f;
+          dst[q0 * LD + q0] = dqk;
+        } else {
+          const float a00 = src[p0 * LD + p1], a01 = src[p0 * LD + q1];
+          const float a10 = src[q0 * LD + p1], a11 = src[q0 * LD + q1];
+          const float r00 = ck * a00 - sk * a10, r01 = ck * a01 - sk * a11;
+          const float r10 = sk * a00 + ck * a10, r11 = sk * a01 + ck * a11;
+          dst[p0 * LD + p1] = cl * r00 - sl * r01;
+          dst[p0 * LD + q1] = sl * r00 + cl * r01;
+          dst[q0 * LD + p1] = cl * r10 - sl * r11;
+          dst[q0 * LD + q1] = sl * r10 + cl * r11;
+        }
+      }
+
+      // V <- V J in place: row `row`, columns (p_l, q_l)
+#pragma unroll
+      for (int i = 0; i < ITEMS; ++i) {
+        const int e = tid + i * T;
+        const int l = e / M, row = e % M;
+        const int pl = lane_of(pair, l);
+        const float cl = lane_of(c, l), sl = lane_of(s, l);
+        float* vr = v + row * LD;
+        const int p = pl & 0xff, q = pl >> 8;
+        const float xp = vr[p], xq = vr[q];
+        vr[p] = cl * xp - sl * xq;
+        vr[q] = sl * xp + cl * xq;
+      }
+
+      float* tmp = src;
+      src = dst;
+      dst = tmp;
+      if (r + 1 < STEPS) __syncthreads();
     }
-    __syncthreads();
+    if (!__syncthreads_or(rotated)) break;
   }
 
-  float* eb = evals + static_cast<size_t>(blockIdx.x) * m;
-  float* vb = evecs + static_cast<size_t>(blockIdx.x) * m * m;
-  for (int idx = tid; idx < m * m; idx += kThreads) {
-    const int i = idx / m, j = idx % m;
-    vb[i * m + j] = v[i * kLd + j];
-    if (i == j) eb[i] = a[i * kLd + i];
+  float* eb = evals + static_cast<size_t>(blockIdx.x) * M;
+  float* vb = evecs + static_cast<size_t>(blockIdx.x) * M * M;
+  for (int idx = tid; idx < M * M; idx += T) {
+    const int i = idx / M, j = idx % M;
+    vb[i * M + j] = v[i * LD + j];
+    if (i == j) eb[i] = src[i * LD + i];
   }
+  if (tid == 0) sweeps_run[blockIdx.x] = sweep;
+}
+
+template <int M>
+int launch(const float* A, const uint16_t* schedule, float* evals,
+           float* evecs, int* sweeps_run, int batch, int max_sweeps,
+           cudaStream_t stream) {
+  constexpr size_t bytes = shared_bytes<M>();
+  static const cudaError_t configured = cudaFuncSetAttribute(
+      jacobi_kernel<M>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes));
+  if (configured != cudaSuccess) return static_cast<int>(configured);
+  jacobi_kernel<M><<<batch, Threads<M>::value, bytes, stream>>>(
+      A, schedule, evals, evecs, sweeps_run, max_sweeps);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // A [batch, m, m] -> evals [batch, m] (unsorted diagonal), evecs [batch, m, m]
-// (row-major, eigenvectors in columns).  All three contiguous f32 on the
-// device; m even, 2 <= m <= 64.  Launches on `stream` and returns
-// cudaGetLastError() of the launch.
-extern "C" int vivit_jacobi_eigh_f32(const float* A, float* evals,
-                                     float* evecs, int batch, int m,
-                                     int sweeps, void* stream) {
+// (row-major, eigenvectors in columns), sweeps_run [batch] (int32).
+// `schedule` is one sweep's round-robin pairs, [m-1, m/2] uint16 p | q << 8.
+// All contiguous on the device; m is 32, 48 or 64.  Launches on `stream` and
+// returns cudaGetLastError() of the launch.
+extern "C" int vivit_jacobi_eigh_f32(const float* A, const uint16_t* schedule,
+                                     float* evals, float* evecs,
+                                     int* sweeps_run, int batch, int m,
+                                     int max_sweeps, void* stream) {
   if (batch <= 0) return 0;
-  if (m < 2 || m > kMaxM || (m & 1)) return static_cast<int>(cudaErrorInvalidValue);
-  jacobi_kernel<<<batch, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      A, evals, evecs, m, sweeps);
-  return static_cast<int>(cudaGetLastError());
+  const auto st = static_cast<cudaStream_t>(stream);
+  switch (m) {
+    case 32:
+      return launch<32>(A, schedule, evals, evecs, sweeps_run, batch, max_sweeps, st);
+    case 48:
+      return launch<48>(A, schedule, evals, evecs, sweeps_run, batch, max_sweeps, st);
+    case 64:
+      return launch<64>(A, schedule, evals, evecs, sweeps_run, batch, max_sweeps, st);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

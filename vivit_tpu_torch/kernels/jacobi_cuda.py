@@ -7,14 +7,19 @@ what bounds it on an H100 and what the design does about it.
 Three pieces, one function:
 
 * :func:`batched_eigh_jacobi_plain`: the plain PyTorch version (batched
-  tensor ops, the same round-robin ordering and rotation formulas as the
-  kernel).  The CPU tests run it, and ``chip_smoke.py`` holds the kernel
-  against it on the card.
+  tensor ops, the same round-robin ordering, rotation formulas and exit
+  rule as the kernel).  The CPU tests run it, and ``chip_smoke.py`` holds
+  the kernel against it on the card.
 * :func:`batched_eigh_jacobi_cuda`: the kernel's wrapper.  Checks its input,
   allocates the outputs, launches on the current stream without
   synchronising, and counts the launch in :data:`LAUNCHES`.
 * :func:`batched_eigh_jacobi`: a CPU tensor goes to the plain version, a
   CUDA tensor to the kernel.  There is no fallback between the two.
+
+Both stop a matrix after the first sweep in which every rotation was the
+identity (``|a_pq| <= 1e-30``): every later sweep would leave it exactly as
+it is, so the result is that of :data:`SWEEPS` sweeps.  The kernel always
+exits so; the plain version does when asked (``exit_early``).
 
 The kernel is built with ``nvcc`` for ``sm_90a`` at its first CUDA call, into
 ``vivit_tpu_torch/_build/``, and loaded with ``ctypes``.
@@ -28,6 +33,8 @@ import torch
 
 SWEEPS = 12
 MAX_M = 64
+# the sizes the kernel is compiled for: the dispatch envelope's m
+KERNEL_SIZES = (32, 48, 64)
 
 # Launches of the CUDA kernel since the last reset (``LAUNCHES = 0``).
 LAUNCHES = 0
@@ -36,6 +43,7 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SOURCE = os.path.join(_PKG_DIR, "csrc", "jacobi.cu")
 _BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 _LIB = None
+_SCHEDULES = {}  # (m, device) -> the schedule table on that device
 
 
 def _rot_from(app, aqq, apq):
@@ -70,6 +78,13 @@ def round_robin_pairs(m: int):
     return torch.minimum(x, y), torch.maximum(x, y)
 
 
+def schedule_table(m: int) -> torch.Tensor:
+    """The kernel's schedule: :func:`round_robin_pairs` packed as
+    ``p | q << 8``, int16 ``[m-1, m/2]`` (read as uint16 by the kernel)."""
+    P, Q = round_robin_pairs(m)
+    return (P | (Q << 8)).to(torch.int16).contiguous()
+
+
 def _sort(d, V):
     evals, order = torch.sort(d, dim=-1)
     evecs = torch.gather(V, -1, order[:, None, :].expand_as(V))
@@ -86,38 +101,54 @@ def _check_shape(A):
         raise ValueError(f"batched Jacobi takes even 2 <= m <= {MAX_M}, got {m}")
 
 
-def batched_eigh_jacobi_plain(A: torch.Tensor):
+def batched_eigh_jacobi_plain(A: torch.Tensor, exit_early: bool = False,
+                              return_sweeps: bool = False):
     """Plain PyTorch Jacobi: ``[B, m, m] -> (evals [B, m] ascending,
-    evecs [B, m, m])``, on whatever device ``A`` lies."""
+    evecs [B, m, m])``, on whatever device ``A`` lies.
+
+    ``exit_early`` stops once every matrix has had a sweep in which every
+    rotation was the identity, as the kernel does; the result is the same.
+    ``return_sweeps`` adds the sweeps that rule runs for each matrix (int32
+    ``[B]``, at most :data:`SWEEPS`), with or without ``exit_early``.
+    """
     _check_shape(A)
     b, m, _ = A.shape
     A = 0.5 * (A + A.transpose(-1, -2))
     V = torch.eye(m, dtype=A.dtype, device=A.device).expand(b, m, m).clone()
     P, Q = round_robin_pairs(m)
     P, Q = P.to(A.device), Q.to(A.device)
-    for step in range(SWEEPS * (m - 1)):
-        p, q = P[step % (m - 1)], Q[step % (m - 1)]
-        app, aqq, apq = A[:, p, p], A[:, q, q], A[:, p, q]  # [b, h]
-        c, s, t = _rot_from(app, aqq, apq)
-        # rows: A <- J^T A
-        cr, sr = c[:, :, None], s[:, :, None]
-        xp, xq = A[:, p, :], A[:, q, :]
-        A[:, p, :] = cr * xp - sr * xq
-        A[:, q, :] = sr * xp + cr * xq
-        # columns: A <- A J, V <- V J
-        cc, sc = c[:, None, :], s[:, None, :]
-        for M in (A, V):
-            xp, xq = M[:, :, p], M[:, :, q]
-            M[:, :, p] = cc * xp - sc * xq
-            M[:, :, q] = sc * xp + cc * xq
-        # the pivot block in Rutishauser's form: the diagonal moves by
-        # ∓t·apq and never goes through (c, s), whose c² + s² ≠ 1 by an
-        # ulp would otherwise drift it over hundreds of steps
-        A[:, p, p] = app - t * apq
-        A[:, q, q] = aqq + t * apq
-        A[:, p, q] = 0.0
-        A[:, q, p] = 0.0
-    return _sort(torch.diagonal(A, dim1=-2, dim2=-1), V)
+    sweeps = torch.full((b,), SWEEPS, dtype=torch.int32, device=A.device)
+    for sweep in range(SWEEPS):
+        rotated = torch.zeros(b, dtype=torch.bool, device=A.device)
+        for step in range(m - 1):
+            p, q = P[step], Q[step]
+            app, aqq, apq = A[:, p, p], A[:, q, q], A[:, p, q]  # [b, h]
+            c, s, t = _rot_from(app, aqq, apq)
+            rotated |= ~(apq.abs() <= 1e-30).all(dim=1)
+            # rows: A <- J^T A
+            cr, sr = c[:, :, None], s[:, :, None]
+            xp, xq = A[:, p, :], A[:, q, :]
+            A[:, p, :] = cr * xp - sr * xq
+            A[:, q, :] = sr * xp + cr * xq
+            # columns: A <- A J, V <- V J
+            cc, sc = c[:, None, :], s[:, None, :]
+            for M in (A, V):
+                xp, xq = M[:, :, p], M[:, :, q]
+                M[:, :, p] = cc * xp - sc * xq
+                M[:, :, q] = sc * xp + cc * xq
+            # the pivot block in Rutishauser's form: the diagonal moves by
+            # ∓t·apq and never goes through (c, s), whose c² + s² ≠ 1 by an
+            # ulp would otherwise drift it over hundreds of steps
+            A[:, p, p] = app - t * apq
+            A[:, q, q] = aqq + t * apq
+            A[:, p, q] = 0.0
+            A[:, q, p] = 0.0
+        # the first sweep without a rotation is the last one the rule runs
+        sweeps = torch.where(~rotated & (sweeps == SWEEPS), sweep + 1, sweeps)
+        if exit_early and bool((sweeps < SWEEPS).all()):
+            break
+    evals, evecs = _sort(torch.diagonal(A, dim1=-2, dim2=-1), V)
+    return (evals, evecs, sweeps) if return_sweeps else (evals, evecs)
 
 
 def build():
@@ -154,36 +185,47 @@ def _library():
         lib_path, _, _ = build()
         lib = ctypes.CDLL(lib_path)
         fn = lib.vivit_jacobi_eigh_f32
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _LIB = lib
     return _LIB
 
 
-def batched_eigh_jacobi_cuda(A: torch.Tensor):
-    """The Hopper kernel: ``[B, m, m] -> (evals ascending, evecs)``."""
+def _schedule(m: int, device: torch.device) -> torch.Tensor:
+    key = (m, device)
+    if key not in _SCHEDULES:
+        _SCHEDULES[key] = schedule_table(m).to(device)
+    return _SCHEDULES[key]
+
+
+def batched_eigh_jacobi_cuda(A: torch.Tensor, return_sweeps: bool = False):
+    """The Hopper kernel: ``[B, m, m] -> (evals ascending, evecs)``, with
+    ``m`` in :data:`KERNEL_SIZES`.  ``return_sweeps`` adds the sweeps each
+    matrix ran (int32 ``[B]``, on the card, not synchronised)."""
     global LAUNCHES
+    _check_shape(A)
+    b, m, _ = A.shape
+    if m not in KERNEL_SIZES:
+        raise ValueError(f"the Jacobi kernel is compiled for m = 32, 48 or 64, got {m}")
     if A.device.type != "cuda":
         raise ValueError(f"the Jacobi kernel takes a CUDA tensor, got {A.device}")
-    _check_shape(A)
     if not A.is_contiguous():
         raise ValueError("the Jacobi kernel takes a contiguous tensor")
-    b, m, _ = A.shape
     d = torch.empty((b, m), dtype=A.dtype, device=A.device)
     V = torch.empty((b, m, m), dtype=A.dtype, device=A.device)
-    if b == 0:
-        return d, V
-    fn = _library().vivit_jacobi_eigh_f32
-    with torch.cuda.device(A.device):
-        stream = torch.cuda.current_stream(A.device).cuda_stream
-        err = fn(A.data_ptr(), d.data_ptr(), V.data_ptr(), b, m, SWEEPS,
-                 stream)
-    if err != 0:
-        raise RuntimeError(f"Jacobi kernel launch failed: cudaError {err}")
-    LAUNCHES += 1
-    return _sort(d, V)
+    sweeps = torch.empty((b,), dtype=torch.int32, device=A.device)
+    if b > 0:
+        fn = _library().vivit_jacobi_eigh_f32
+        sched = _schedule(m, A.device)
+        with torch.cuda.device(A.device):
+            stream = torch.cuda.current_stream(A.device).cuda_stream
+            err = fn(A.data_ptr(), sched.data_ptr(), d.data_ptr(), V.data_ptr(),
+                     sweeps.data_ptr(), b, m, SWEEPS, stream)
+        if err != 0:
+            raise RuntimeError(f"Jacobi kernel launch failed: cudaError {err}")
+        LAUNCHES += 1
+    evals, evecs = _sort(d, V)
+    return (evals, evecs, sweeps) if return_sweeps else (evals, evecs)
 
 
 def batched_eigh_jacobi(A: torch.Tensor):
@@ -197,21 +239,24 @@ def batched_eigh_jacobi(A: torch.Tensor):
     return batched_eigh_jacobi_cuda(A)
 
 
-def rotation_flops(b: int, m: int) -> int:
-    """Floating-point operations one call needs: per pair and step, 3 per
+def rotation_flops(m: int, matrix_sweeps: int) -> int:
+    """Floating-point operations of ``matrix_sweeps`` sweeps of an ``m × m``
+    matrix (the sweeps run, summed over the batch): per pair and step, 3 per
     updated element of two rows of ``A`` and two columns of ``V`` (12·m),
     plus ~20 for ``(c, s)`` and the pivot block.  ``JᵀAJ`` is symmetric, so
     the two columns of ``A`` mirror its two rows and cost nothing more."""
-    return b * SWEEPS * (m - 1) * (m // 2) * (12 * m + 20)
+    return matrix_sweeps * (m - 1) * (m // 2) * (12 * m + 20)
 
 
 def io_bytes(b: int, m: int) -> int:
-    """Bytes one call must move: ``A`` read once, evals and evecs written."""
-    return 4 * (b * m * m + b * m + b * m * m)
+    """Bytes one call must move: ``A`` read once, evals, evecs and the
+    sweep counts written."""
+    return 4 * (b * m * m + b * m + b * m * m + b)
 
 
-def bound_ms(b: int, m: int, peak_flops: float, peak_bytes: float):
+def bound_ms(b: int, m: int, matrix_sweeps: int, peak_flops: float,
+             peak_bytes: float):
     """Least time on a card with the given peaks, and what sets it."""
-    t_ops = rotation_flops(b, m) / peak_flops * 1e3
+    t_ops = rotation_flops(m, matrix_sweeps) / peak_flops * 1e3
     t_bytes = io_bytes(b, m) / peak_bytes * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
