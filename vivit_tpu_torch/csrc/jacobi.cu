@@ -96,6 +96,9 @@ jacobi_kernel(const float* __restrict__ A, const uint16_t* __restrict__ schedule
   constexpr int STEPS = M - 1;
   constexpr int BLOCKS = H * H / T;  // 2x2 blocks of A per thread
   constexpr int ITEMS = M * H / T;   // (row, pair) items of V per thread
+  // where H divides 32, a thread's pair l is lane % H, whose rotation the
+  // thread computes itself; otherwise it comes from lane l by shuffles
+  constexpr bool kOwnL = 32 % H == 0;
   static_assert(H * H % T == 0 && M * H % T == 0, "uneven split");
   static_assert(T % 32 == 0 && H <= 32, "a warp holds every pair's rotation");
 
@@ -107,6 +110,7 @@ jacobi_kernel(const float* __restrict__ A, const uint16_t* __restrict__ schedule
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
+  const int own = lane % H;  // the pair whose rotation this lane computes
   const float* Ab = A + static_cast<size_t>(blockIdx.x) * M * M;
   for (int idx = tid; idx < M * M; idx += T) {
     const int i = idx / M, j = idx % M;
@@ -116,54 +120,94 @@ jacobi_kernel(const float* __restrict__ A, const uint16_t* __restrict__ schedule
   for (int idx = tid; idx < STEPS * H; idx += T) sched[idx] = schedule[idx];
   __syncthreads();
 
-  int next = lane < H ? sched[lane] : 0;
+  // this thread's blocks (k, l) of A and items (row, l) of V
+  int bk[BLOCKS], bl[BLOCKS], vl[ITEMS], vrow[ITEMS];
+#pragma unroll
+  for (int i = 0; i < BLOCKS; ++i) {
+    bk[i] = (tid + i * T) / H;
+    bl[i] = (tid + i * T) % H;
+  }
+#pragma unroll
+  for (int i = 0; i < ITEMS; ++i) {
+    vl[i] = (tid + i * T) % H;
+    vrow[i] = (tid + i * T) / H;
+  }
+
+  // the pairs of this thread's rotation, blocks and items at one step
+  int po, pk[BLOCKS], pl[BLOCKS], pv[ITEMS];
+  auto read_pairs = [&](int r) {
+    const uint16_t* pairs = sched + r * H;
+    po = pairs[own];
+#pragma unroll
+    for (int i = 0; i < BLOCKS; ++i) {
+      pk[i] = pairs[bk[i]];
+      pl[i] = kOwnL ? po : pairs[bl[i]];
+    }
+#pragma unroll
+    for (int i = 0; i < ITEMS; ++i) pv[i] = kOwnL ? po : pairs[vl[i]];
+  };
+  read_pairs(0);
+
   int sweep = 0;
   while (sweep < max_sweeps) {
     ++sweep;
     int rotated = 0;
     for (int r = 0; r < STEPS; ++r) {
-      // lane j < H: the rotation of pair j, as `_rot_from`
-      const int pair = next;
-      float c = 1.0f, s = 0.0f, dp = 0.0f, dq = 0.0f;
-      if (lane < H) {
-        next = sched[(r + 1 < STEPS ? r + 1 : 0) * H + lane];
-        const int p = pair & 0xff, q = pair >> 8;
-        const float app = src[p * LD + p];
-        const float aqq = src[q * LD + q];
-        const float apq = src[p * LD + q];
-        const bool small = fabsf(apq) <= 1e-30f;
-        const float tau = (aqq - app) / (small ? 1.0f : 2.0f * apq);
-        float t = (tau >= 0.0f ? 1.0f : -1.0f) /
-                  (fabsf(tau) + sqrtf(1.0f + tau * tau));
-        if (small) t = 0.0f;
-        c = 1.0f / sqrtf(1.0f + t * t);
-        s = t * c;
-        dp = app - t * apq;
-        dq = aqq + t * apq;
-        rotated |= !small;
+      // the loads go first, so that their latency overlaps the rotation's
+      // chain of divisions and roots
+      const int p = po & 0xff, q = po >> 8;
+      const float app = src[p * LD + p];
+      const float aqq = src[q * LD + q];
+      const float apq = src[p * LD + q];
+      float a00[BLOCKS], a01[BLOCKS], a10[BLOCKS], a11[BLOCKS];
+#pragma unroll
+      for (int i = 0; i < BLOCKS; ++i) {
+        const int p0 = pk[i] & 0xff, q0 = pk[i] >> 8;
+        const int p1 = pl[i] & 0xff, q1 = pl[i] >> 8;
+        a00[i] = src[p0 * LD + p1];
+        a01[i] = src[p0 * LD + q1];
+        a10[i] = src[q0 * LD + p1];
+        a11[i] = src[q0 * LD + q1];
       }
+      float xp[ITEMS], xq[ITEMS];
+#pragma unroll
+      for (int i = 0; i < ITEMS; ++i) {
+        xp[i] = v[vrow[i] * LD + (pv[i] & 0xff)];
+        xq[i] = v[vrow[i] * LD + (pv[i] >> 8)];
+      }
+
+      // the rotation of pair `own`, as `_rot_from`
+      const bool small = fabsf(apq) <= 1e-30f;
+      const float tau = (aqq - app) / (small ? 1.0f : 2.0f * apq);
+      float t = (tau >= 0.0f ? 1.0f : -1.0f) /
+                (fabsf(tau) + sqrtf(1.0f + tau * tau));
+      if (small) t = 0.0f;
+      const float c = 1.0f / sqrtf(1.0f + t * t);
+      const float s = t * c;
+      const float dp = app - t * apq;
+      const float dq = aqq + t * apq;
+      rotated |= !small;
 
       // A <- J^T A J, block (k, l) = J_k^T A_kl J_l into the other buffer
 #pragma unroll
       for (int i = 0; i < BLOCKS; ++i) {
-        const int b = tid + i * T;
-        const int k = b / H, l = b % H;
-        const int pk = lane_of(pair, k), pl = lane_of(pair, l);
-        const float ck = lane_of(c, k), sk = lane_of(s, k);
-        const float cl = lane_of(c, l), sl = lane_of(s, l);
-        const float dpk = lane_of(dp, k), dqk = lane_of(dq, k);
-        const int p0 = pk & 0xff, q0 = pk >> 8;
-        const int p1 = pl & 0xff, q1 = pl >> 8;
-        if (k == l) {
-          dst[p0 * LD + p0] = dpk;
+        const float ck = lane_of(c, bk[i]), sk = lane_of(s, bk[i]);
+        const float cl = kOwnL ? c : lane_of(c, bl[i]);
+        const float sl = kOwnL ? s : lane_of(s, bl[i]);
+        const float dpl = kOwnL ? dp : lane_of(dp, bl[i]);
+        const float dql = kOwnL ? dq : lane_of(dq, bl[i]);
+        const int p0 = pk[i] & 0xff, q0 = pk[i] >> 8;
+        const int p1 = pl[i] & 0xff, q1 = pl[i] >> 8;
+        if (bk[i] == bl[i]) {
+          dst[p0 * LD + p0] = dpl;
           dst[p0 * LD + q0] = 0.0f;
           dst[q0 * LD + p0] = 0.0f;
-          dst[q0 * LD + q0] = dqk;
+          dst[q0 * LD + q0] = dql;
         } else {
-          const float a00 = src[p0 * LD + p1], a01 = src[p0 * LD + q1];
-          const float a10 = src[q0 * LD + p1], a11 = src[q0 * LD + q1];
-          const float r00 = ck * a00 - sk * a10, r01 = ck * a01 - sk * a11;
-          const float r10 = sk * a00 + ck * a10, r11 = sk * a01 + ck * a11;
+          const float r00 = ck * a00[i] - sk * a10[i];
+          const float r01 = ck * a01[i] - sk * a11[i];
+          const float r10 = sk * a00[i] + ck * a10[i];
+          const float r11 = sk * a01[i] + ck * a11[i];
           dst[p0 * LD + p1] = cl * r00 - sl * r01;
           dst[p0 * LD + q1] = sl * r00 + cl * r01;
           dst[q0 * LD + p1] = cl * r10 - sl * r11;
@@ -171,20 +215,17 @@ jacobi_kernel(const float* __restrict__ A, const uint16_t* __restrict__ schedule
         }
       }
 
-      // V <- V J in place: row `row`, columns (p_l, q_l)
+      // V <- V J in place: row `vrow`, columns (p_l, q_l)
 #pragma unroll
       for (int i = 0; i < ITEMS; ++i) {
-        const int e = tid + i * T;
-        const int l = e / M, row = e % M;
-        const int pl = lane_of(pair, l);
-        const float cl = lane_of(c, l), sl = lane_of(s, l);
-        float* vr = v + row * LD;
-        const int p = pl & 0xff, q = pl >> 8;
-        const float xp = vr[p], xq = vr[q];
-        vr[p] = cl * xp - sl * xq;
-        vr[q] = sl * xp + cl * xq;
+        const float cl = kOwnL ? c : lane_of(c, vl[i]);
+        const float sl = kOwnL ? s : lane_of(s, vl[i]);
+        v[vrow[i] * LD + (pv[i] & 0xff)] = cl * xp[i] - sl * xq[i];
+        v[vrow[i] * LD + (pv[i] >> 8)] = sl * xp[i] + cl * xq[i];
       }
 
+      // the next step's pairs, read before the barrier
+      read_pairs(r + 1 < STEPS ? r + 1 : 0);
       float* tmp = src;
       src = dst;
       dst = tmp;

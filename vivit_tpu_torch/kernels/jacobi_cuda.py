@@ -165,8 +165,10 @@ def build():
     cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
     nvcc = os.path.join(cuda_home, "bin", "nvcc")
     tmp = f"{lib_path}.{os.getpid()}.tmp"
+    # --fmad=false: no multiply-add contraction, so the kernel rounds every
+    # product and sum as its plain version does
     cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-           "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+           "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
            "-o", tmp, _SOURCE]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
