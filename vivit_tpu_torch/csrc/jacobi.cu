@@ -72,17 +72,23 @@ template <> struct Threads<32> { static constexpr int value = 256; };
 template <> struct Threads<48> { static constexpr int value = 288; };
 template <> struct Threads<64> { static constexpr int value = 512; };
 
+// Byte offsets of one pair (p, q) in a padded [m, m+1] buffer: rows p and q,
+// columns p and q.  An element's address is one add of a row and a column.
+struct PairOffsets {
+  int row_p, row_q, col_p, col_q;
+};
+
 template <int M>
 constexpr size_t shared_bytes() {
-  return 3 * M * (M + 1) * sizeof(float) + (M - 1) * (M / 2) * sizeof(uint16_t);
+  return 3 * M * (M + 1) * sizeof(float) + (M - 1) * (M / 2) * sizeof(PairOffsets);
 }
 
 __device__ __forceinline__ float lane_of(float x, int src) {
   return __shfl_sync(0xffffffffu, x, src);
 }
 
-__device__ __forceinline__ int lane_of(int x, int src) {
-  return __shfl_sync(0xffffffffu, x, src);
+__device__ __forceinline__ float& at(char* base, int offset) {
+  return *reinterpret_cast<float*>(base + offset);
 }
 
 template <int M>
@@ -103,10 +109,10 @@ jacobi_kernel(const float* __restrict__ A, const uint16_t* __restrict__ schedule
   static_assert(T % 32 == 0 && H <= 32, "a warp holds every pair's rotation");
 
   extern __shared__ float smem[];
-  float* src = smem;
-  float* dst = smem + M * LD;
+  char* src = reinterpret_cast<char*>(smem);
+  char* dst = reinterpret_cast<char*>(smem + M * LD);
   float* v = smem + 2 * M * LD;
-  uint16_t* sched = reinterpret_cast<uint16_t*>(smem + 3 * M * LD);
+  PairOffsets* table = reinterpret_cast<PairOffsets*>(smem + 3 * M * LD);
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -114,14 +120,21 @@ jacobi_kernel(const float* __restrict__ A, const uint16_t* __restrict__ schedule
   const float* Ab = A + static_cast<size_t>(blockIdx.x) * M * M;
   for (int idx = tid; idx < M * M; idx += T) {
     const int i = idx / M, j = idx % M;
-    src[i * LD + j] = 0.5f * (Ab[i * M + j] + Ab[j * M + i]);
+    reinterpret_cast<float*>(src)[i * LD + j] = 0.5f * (Ab[i * M + j] + Ab[j * M + i]);
     v[i * LD + j] = (i == j) ? 1.0f : 0.0f;
   }
-  for (int idx = tid; idx < STEPS * H; idx += T) sched[idx] = schedule[idx];
+  for (int idx = tid; idx < STEPS * H; idx += T) {
+    const int p = schedule[idx] & 0xff, q = schedule[idx] >> 8;
+    table[idx] = {static_cast<int>(p * LD * sizeof(float)),
+                  static_cast<int>(q * LD * sizeof(float)),
+                  static_cast<int>(p * sizeof(float)),
+                  static_cast<int>(q * sizeof(float))};
+  }
   __syncthreads();
 
   // this thread's blocks (k, l) of A and items (row, l) of V
-  int bk[BLOCKS], bl[BLOCKS], vl[ITEMS], vrow[ITEMS];
+  int bk[BLOCKS], bl[BLOCKS], vl[ITEMS];
+  char* vrow[ITEMS];
 #pragma unroll
   for (int i = 0; i < BLOCKS; ++i) {
     bk[i] = (tid + i * T) / H;
@@ -130,13 +143,13 @@ jacobi_kernel(const float* __restrict__ A, const uint16_t* __restrict__ schedule
 #pragma unroll
   for (int i = 0; i < ITEMS; ++i) {
     vl[i] = (tid + i * T) % H;
-    vrow[i] = (tid + i * T) / H;
+    vrow[i] = reinterpret_cast<char*>(v + (tid + i * T) / H * LD);
   }
 
   // the pairs of this thread's rotation, blocks and items at one step
-  int po, pk[BLOCKS], pl[BLOCKS], pv[ITEMS];
+  PairOffsets po, pk[BLOCKS], pl[BLOCKS], pv[ITEMS];
   auto read_pairs = [&](int r) {
-    const uint16_t* pairs = sched + r * H;
+    const PairOffsets* pairs = table + r * H;
     po = pairs[own];
 #pragma unroll
     for (int i = 0; i < BLOCKS; ++i) {
@@ -155,25 +168,22 @@ jacobi_kernel(const float* __restrict__ A, const uint16_t* __restrict__ schedule
     for (int r = 0; r < STEPS; ++r) {
       // the loads go first, so that their latency overlaps the rotation's
       // chain of divisions and roots
-      const int p = po & 0xff, q = po >> 8;
-      const float app = src[p * LD + p];
-      const float aqq = src[q * LD + q];
-      const float apq = src[p * LD + q];
+      const float app = at(src, po.row_p + po.col_p);
+      const float aqq = at(src, po.row_q + po.col_q);
+      const float apq = at(src, po.row_p + po.col_q);
       float a00[BLOCKS], a01[BLOCKS], a10[BLOCKS], a11[BLOCKS];
 #pragma unroll
       for (int i = 0; i < BLOCKS; ++i) {
-        const int p0 = pk[i] & 0xff, q0 = pk[i] >> 8;
-        const int p1 = pl[i] & 0xff, q1 = pl[i] >> 8;
-        a00[i] = src[p0 * LD + p1];
-        a01[i] = src[p0 * LD + q1];
-        a10[i] = src[q0 * LD + p1];
-        a11[i] = src[q0 * LD + q1];
+        a00[i] = at(src, pk[i].row_p + pl[i].col_p);
+        a01[i] = at(src, pk[i].row_p + pl[i].col_q);
+        a10[i] = at(src, pk[i].row_q + pl[i].col_p);
+        a11[i] = at(src, pk[i].row_q + pl[i].col_q);
       }
       float xp[ITEMS], xq[ITEMS];
 #pragma unroll
       for (int i = 0; i < ITEMS; ++i) {
-        xp[i] = v[vrow[i] * LD + (pv[i] & 0xff)];
-        xq[i] = v[vrow[i] * LD + (pv[i] >> 8)];
+        xp[i] = at(vrow[i], pv[i].col_p);
+        xq[i] = at(vrow[i], pv[i].col_q);
       }
 
       // the rotation of pair `own`, as `_rot_from`
@@ -188,7 +198,8 @@ jacobi_kernel(const float* __restrict__ A, const uint16_t* __restrict__ schedule
       const float dq = aqq + t * apq;
       rotated |= !small;
 
-      // A <- J^T A J, block (k, l) = J_k^T A_kl J_l into the other buffer
+      // A <- J^T A J, block (k, l) = J_k^T A_kl J_l into the other buffer;
+      // a diagonal block (k == l) takes the pivot block instead
 #pragma unroll
       for (int i = 0; i < BLOCKS; ++i) {
         const float ck = lane_of(c, bk[i]), sk = lane_of(s, bk[i]);
@@ -196,23 +207,15 @@ jacobi_kernel(const float* __restrict__ A, const uint16_t* __restrict__ schedule
         const float sl = kOwnL ? s : lane_of(s, bl[i]);
         const float dpl = kOwnL ? dp : lane_of(dp, bl[i]);
         const float dql = kOwnL ? dq : lane_of(dq, bl[i]);
-        const int p0 = pk[i] & 0xff, q0 = pk[i] >> 8;
-        const int p1 = pl[i] & 0xff, q1 = pl[i] >> 8;
-        if (bk[i] == bl[i]) {
-          dst[p0 * LD + p0] = dpl;
-          dst[p0 * LD + q0] = 0.0f;
-          dst[q0 * LD + p0] = 0.0f;
-          dst[q0 * LD + q0] = dql;
-        } else {
-          const float r00 = ck * a00[i] - sk * a10[i];
-          const float r01 = ck * a01[i] - sk * a11[i];
-          const float r10 = sk * a00[i] + ck * a10[i];
-          const float r11 = sk * a01[i] + ck * a11[i];
-          dst[p0 * LD + p1] = cl * r00 - sl * r01;
-          dst[p0 * LD + q1] = sl * r00 + cl * r01;
-          dst[q0 * LD + p1] = cl * r10 - sl * r11;
-          dst[q0 * LD + q1] = sl * r10 + cl * r11;
-        }
+        const bool pivot = bk[i] == bl[i];
+        const float r00 = ck * a00[i] - sk * a10[i];
+        const float r01 = ck * a01[i] - sk * a11[i];
+        const float r10 = sk * a00[i] + ck * a10[i];
+        const float r11 = sk * a01[i] + ck * a11[i];
+        at(dst, pk[i].row_p + pl[i].col_p) = pivot ? dpl : cl * r00 - sl * r01;
+        at(dst, pk[i].row_p + pl[i].col_q) = pivot ? 0.0f : sl * r00 + cl * r01;
+        at(dst, pk[i].row_q + pl[i].col_p) = pivot ? 0.0f : cl * r10 - sl * r11;
+        at(dst, pk[i].row_q + pl[i].col_q) = pivot ? dql : sl * r10 + cl * r11;
       }
 
       // V <- V J in place: row `vrow`, columns (p_l, q_l)
@@ -220,13 +223,13 @@ jacobi_kernel(const float* __restrict__ A, const uint16_t* __restrict__ schedule
       for (int i = 0; i < ITEMS; ++i) {
         const float cl = kOwnL ? c : lane_of(c, vl[i]);
         const float sl = kOwnL ? s : lane_of(s, vl[i]);
-        v[vrow[i] * LD + (pv[i] & 0xff)] = cl * xp[i] - sl * xq[i];
-        v[vrow[i] * LD + (pv[i] >> 8)] = sl * xp[i] + cl * xq[i];
+        at(vrow[i], pv[i].col_p) = cl * xp[i] - sl * xq[i];
+        at(vrow[i], pv[i].col_q) = sl * xp[i] + cl * xq[i];
       }
 
       // the next step's pairs, read before the barrier
       read_pairs(r + 1 < STEPS ? r + 1 : 0);
-      float* tmp = src;
+      char* tmp = src;
       src = dst;
       dst = tmp;
       if (r + 1 < STEPS) __syncthreads();
@@ -234,12 +237,13 @@ jacobi_kernel(const float* __restrict__ A, const uint16_t* __restrict__ schedule
     if (!__syncthreads_or(rotated)) break;
   }
 
+  const float* a = reinterpret_cast<const float*>(src);
   float* eb = evals + static_cast<size_t>(blockIdx.x) * M;
   float* vb = evecs + static_cast<size_t>(blockIdx.x) * M * M;
   for (int idx = tid; idx < M * M; idx += T) {
     const int i = idx / M, j = idx % M;
     vb[i * M + j] = v[i * LD + j];
-    if (i == j) eb[i] = src[i * LD + i];
+    if (i == j) eb[i] = a[i * LD + i];
   }
   if (tid == 0) sweeps_run[blockIdx.x] = sweep;
 }
