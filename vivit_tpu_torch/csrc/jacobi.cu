@@ -80,7 +80,25 @@ struct PairOffsets {
 
 template <int M>
 constexpr size_t shared_bytes() {
-  return 3 * M * (M + 1) * sizeof(float) + (M - 1) * (M / 2) * sizeof(PairOffsets);
+  return 3 * M * (M + 1) * sizeof(float) + (M - 1) * (M / 2) * (sizeof(PairOffsets) + sizeof(int));
+}
+
+struct Rotation {
+  float c, s, dp, dq;
+  bool small;
+};
+
+__device__ __forceinline__ Rotation rotation(float app, float aqq, float apq) {
+  Rotation rot;
+  rot.small = fabsf(apq) <= 1e-30f;
+  const float tau = (aqq - app) / (rot.small ? 1.0f : 2.0f * apq);
+  float t = (tau >= 0.0f ? 1.0f : -1.0f) / (fabsf(tau) + sqrtf(1.0f + tau * tau));
+  if (rot.small) t = 0.0f;
+  rot.c = 1.0f / sqrtf(1.0f + t * t);
+  rot.s = t * rot.c;
+  rot.dp = app - t * apq;
+  rot.dq = aqq + t * apq;
+  return rot;
 }
 
 __device__ __forceinline__ float lane_of(float x, int src) {
@@ -93,7 +111,7 @@ __device__ __forceinline__ float& at(char* base, int offset) {
 
 template <int M>
 __global__ void __launch_bounds__(Threads<M>::value)
-jacobi_kernel(const float* __restrict__ A, const uint16_t* __restrict__ schedule,
+jacobi_kernel(const float* __restrict__ A, const int* __restrict__ schedule,
               float* __restrict__ evals, float* __restrict__ evecs,
               int* __restrict__ sweeps_run, int max_sweeps) {
   constexpr int T = Threads<M>::value;
@@ -113,6 +131,7 @@ jacobi_kernel(const float* __restrict__ A, const uint16_t* __restrict__ schedule
   char* dst = reinterpret_cast<char*>(smem + M * LD);
   float* v = smem + 2 * M * LD;
   PairOffsets* table = reinterpret_cast<PairOffsets*>(smem + 3 * M * LD);
+  int* ahead = reinterpret_cast<int*>(table + STEPS * H);
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -124,7 +143,8 @@ jacobi_kernel(const float* __restrict__ A, const uint16_t* __restrict__ schedule
     v[i * LD + j] = (i == j) ? 1.0f : 0.0f;
   }
   for (int idx = tid; idx < STEPS * H; idx += T) {
-    const int p = schedule[idx] & 0xff, q = schedule[idx] >> 8;
+    const int p = schedule[idx] & 0xff, q = (schedule[idx] >> 8) & 0xff;
+    ahead[idx] = schedule[idx] >> 16;
     table[idx] = {static_cast<int>(p * LD * sizeof(float)),
                   static_cast<int>(q * LD * sizeof(float)),
                   static_cast<int>(p * sizeof(float)),
@@ -148,9 +168,16 @@ jacobi_kernel(const float* __restrict__ A, const uint16_t* __restrict__ schedule
 
   // the pairs of this thread's rotation, blocks and items at one step
   PairOffsets po, pk[BLOCKS], pl[BLOCKS], pv[ITEMS];
+  int e_off[4], next_meta;
   auto read_pairs = [&](int r) {
     const PairOffsets* pairs = table + r * H;
     po = pairs[own];
+    next_meta = ahead[r * H + own];
+    const PairOffsets kr = pairs[next_meta & 31], kc = pairs[(next_meta >> 6) & 31];
+    e_off[0] = kr.row_p + kc.col_p;
+    e_off[1] = kr.row_p + kc.col_q;
+    e_off[2] = kr.row_q + kc.col_p;
+    e_off[3] = kr.row_q + kc.col_q;
 #pragma unroll
     for (int i = 0; i < BLOCKS; ++i) {
       pk[i] = pairs[bk[i]];
@@ -160,17 +187,19 @@ jacobi_kernel(const float* __restrict__ A, const uint16_t* __restrict__ schedule
     for (int i = 0; i < ITEMS; ++i) pv[i] = kOwnL ? po : pairs[vl[i]];
   };
   read_pairs(0);
+  Rotation rot = rotation(at(src, po.row_p + po.col_p), at(src, po.row_q + po.col_q),
+                          at(src, po.row_p + po.col_q));
 
   int sweep = 0;
   while (sweep < max_sweeps) {
     ++sweep;
     int rotated = 0;
     for (int r = 0; r < STEPS; ++r) {
-      // the loads go first, so that their latency overlaps the rotation's
-      // chain of divisions and roots
-      const float app = at(src, po.row_p + po.col_p);
-      const float aqq = at(src, po.row_q + po.col_q);
-      const float apq = at(src, po.row_p + po.col_q);
+      const float c = rot.c, s = rot.s, dp = rot.dp, dq = rot.dq;
+      rotated |= !rot.small;
+      float e[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) e[i] = at(src, e_off[i]);
       float a00[BLOCKS], a01[BLOCKS], a10[BLOCKS], a11[BLOCKS];
 #pragma unroll
       for (int i = 0; i < BLOCKS; ++i) {
@@ -186,17 +215,21 @@ jacobi_kernel(const float* __restrict__ A, const uint16_t* __restrict__ schedule
         xq[i] = at(vrow[i], pv[i].col_q);
       }
 
-      // the rotation of pair `own`, as `_rot_from`
-      const bool small = fabsf(apq) <= 1e-30f;
-      const float tau = (aqq - app) / (small ? 1.0f : 2.0f * apq);
-      float t = (tau >= 0.0f ? 1.0f : -1.0f) /
-                (fabsf(tau) + sqrtf(1.0f + tau * tau));
-      if (small) t = 0.0f;
-      const float c = 1.0f / sqrtf(1.0f + t * t);
-      const float s = t * c;
-      const float dp = app - t * apq;
-      const float dq = aqq + t * apq;
-      rotated |= !small;
+      // lookahead: the next step's pivot of pair `own`, computed as the
+      // bulk update computes it, then its rotation
+      Rotation next;
+      {
+        const int kr = next_meta & 31, a = (next_meta >> 5) & 1;
+        const int kc = (next_meta >> 6) & 31, b = (next_meta >> 11) & 1;
+        const float ckr = lane_of(c, kr), skr = lane_of(s, kr);
+        const float ckc = lane_of(c, kc), skc = lane_of(s, kc);
+        const float dpr = lane_of(dp, kr), dqr = lane_of(dq, kr);
+        const float dpc = lane_of(dp, kc), dqc = lane_of(dq, kc);
+        const float r0 = a ? skr * e[0] + ckr * e[2] : ckr * e[0] - skr * e[2];
+        const float r1 = a ? skr * e[1] + ckr * e[3] : ckr * e[1] - skr * e[3];
+        const float apq = b ? skc * r0 + ckc * r1 : ckc * r0 - skc * r1;
+        next = rotation(a ? dqr : dpr, b ? dqc : dpc, apq);
+      }
 
       // A <- J^T A J, block (k, l) = J_k^T A_kl J_l into the other buffer;
       // a diagonal block (k == l) takes the pivot block instead
@@ -229,6 +262,7 @@ jacobi_kernel(const float* __restrict__ A, const uint16_t* __restrict__ schedule
 
       // the next step's pairs, read before the barrier
       read_pairs(r + 1 < STEPS ? r + 1 : 0);
+      rot = next;
       char* tmp = src;
       src = dst;
       dst = tmp;
@@ -249,7 +283,7 @@ jacobi_kernel(const float* __restrict__ A, const uint16_t* __restrict__ schedule
 }
 
 template <int M>
-int launch(const float* A, const uint16_t* schedule, float* evals,
+int launch(const float* A, const int* schedule, float* evals,
            float* evecs, int* sweeps_run, int batch, int max_sweeps,
            cudaStream_t stream) {
   constexpr size_t bytes = shared_bytes<M>();
@@ -269,7 +303,7 @@ int launch(const float* A, const uint16_t* schedule, float* evals,
 // `schedule` is one sweep's round-robin pairs, [m-1, m/2] uint16 p | q << 8.
 // All contiguous on the device; m is 32, 48 or 64.  Launches on `stream` and
 // returns cudaGetLastError() of the launch.
-extern "C" int vivit_jacobi_eigh_f32(const float* A, const uint16_t* schedule,
+extern "C" int vivit_jacobi_eigh_f32(const float* A, const int* schedule,
                                      float* evals, float* evecs,
                                      int* sweeps_run, int batch, int m,
                                      int max_sweeps, void* stream) {

@@ -79,10 +79,25 @@ def round_robin_pairs(m: int):
 
 
 def schedule_table(m: int) -> torch.Tensor:
-    """The kernel's schedule: :func:`round_robin_pairs` packed as
-    ``p | q << 8``, int16 ``[m-1, m/2]`` (read as uint16 by the kernel)."""
+    """The kernel's schedule, int32 ``[m-1, m/2]``: pair ``j`` of step ``r``
+    of :func:`round_robin_pairs` as ``p | q << 8``, and in bits 16-27 where
+    the next step's pair ``j`` ``(p', q')`` lies in step ``r``'s blocks:
+    ``kr | a << 5 | kc << 6 | b << 11``, with ``p'`` on side ``a`` (0 for
+    ``p``, 1 for ``q``) of pair ``kr`` and ``q'`` on side ``b`` of pair
+    ``kc``.  The step after the last is step 0 of the next sweep."""
     P, Q = round_robin_pairs(m)
-    return (P | (Q << 8)).to(torch.int16).contiguous()
+    steps, h = P.shape
+    r = torch.arange(steps)[:, None]
+    pair_of = torch.empty((steps, m), dtype=torch.long)
+    side = torch.empty((steps, m), dtype=torch.long)
+    pair_of[r, P] = torch.arange(h)
+    pair_of[r, Q] = torch.arange(h)
+    side[r, P] = 0
+    side[r, Q] = 1
+    Pn, Qn = P.roll(-1, 0), Q.roll(-1, 0)
+    ahead = (pair_of.gather(1, Pn) | side.gather(1, Pn) << 5
+             | pair_of.gather(1, Qn) << 6 | side.gather(1, Qn) << 11)
+    return (P | Q << 8 | ahead << 16).to(torch.int32).contiguous()
 
 
 def _sort(d, V):
