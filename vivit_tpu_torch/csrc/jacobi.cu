@@ -65,8 +65,9 @@
 
 namespace {
 
-// Threads of the CTA for each compiled m: every thread takes the same number
-// of 2x2 blocks of A ((m/2)^2 in all) and of (row, pair) items of V (m*m/2).
+// Threads of the CTA for each compiled m, besides the rotation warp: every
+// one takes the same number of 2x2 blocks of A ((m/2)^2 in all) and of
+// (row, pair) items of V (m*m/2).
 template <int M> struct Threads;
 template <> struct Threads<32> { static constexpr int value = 256; };
 template <> struct Threads<48> { static constexpr int value = 288; };
@@ -80,7 +81,9 @@ struct PairOffsets {
 
 template <int M>
 constexpr size_t shared_bytes() {
-  return 3 * M * (M + 1) * sizeof(float) + (M - 1) * (M / 2) * (sizeof(PairOffsets) + sizeof(int));
+  return 3 * M * (M + 1) * sizeof(float) +
+         (M - 1) * (M / 2) * (sizeof(PairOffsets) + sizeof(int)) +
+         2 * (M / 2) * sizeof(float4);
 }
 
 struct Rotation {
@@ -88,6 +91,8 @@ struct Rotation {
   bool small;
 };
 
+// The rotation that annihilates apq, as `_rot_from`, and the pivot block's
+// new diagonal in Rutishauser's form.
 __device__ __forceinline__ Rotation rotation(float app, float aqq, float apq) {
   Rotation rot;
   rot.small = fabsf(apq) <= 1e-30f;
@@ -110,21 +115,18 @@ __device__ __forceinline__ float& at(char* base, int offset) {
 }
 
 template <int M>
-__global__ void __launch_bounds__(Threads<M>::value)
+__global__ void __launch_bounds__(Threads<M>::value + 32)
 jacobi_kernel(const float* __restrict__ A, const int* __restrict__ schedule,
               float* __restrict__ evals, float* __restrict__ evecs,
               int* __restrict__ sweeps_run, int max_sweeps) {
-  constexpr int T = Threads<M>::value;
+  constexpr int T = Threads<M>::value;  // the bulk threads
   constexpr int H = M / 2;
   constexpr int LD = M + 1;
   constexpr int STEPS = M - 1;
-  constexpr int BLOCKS = H * H / T;  // 2x2 blocks of A per thread
-  constexpr int ITEMS = M * H / T;   // (row, pair) items of V per thread
-  // where H divides 32, a thread's pair l is lane % H, whose rotation the
-  // thread computes itself; otherwise it comes from lane l by shuffles
-  constexpr bool kOwnL = 32 % H == 0;
+  constexpr int BLOCKS = H * H / T;  // 2x2 blocks of A per bulk thread
+  constexpr int ITEMS = M * H / T;   // (row, pair) items of V per bulk thread
   static_assert(H * H % T == 0 && M * H % T == 0, "uneven split");
-  static_assert(T % 32 == 0 && H <= 32, "a warp holds every pair's rotation");
+  static_assert(T % 32 == 0 && H <= 32, "one warp holds every pair's rotation");
 
   extern __shared__ float smem[];
   char* src = reinterpret_cast<char*>(smem);
@@ -132,27 +134,28 @@ jacobi_kernel(const float* __restrict__ A, const int* __restrict__ schedule,
   float* v = smem + 2 * M * LD;
   PairOffsets* table = reinterpret_cast<PairOffsets*>(smem + 3 * M * LD);
   int* ahead = reinterpret_cast<int*>(table + STEPS * H);
+  float4* rot_buf = reinterpret_cast<float4*>(ahead + STEPS * H);  // [2][H]
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
-  const int own = lane % H;  // the pair whose rotation this lane computes
+  const bool rot_warp = tid >= T;
   const float* Ab = A + static_cast<size_t>(blockIdx.x) * M * M;
-  for (int idx = tid; idx < M * M; idx += T) {
+  for (int idx = tid; idx < M * M; idx += T + 32) {
     const int i = idx / M, j = idx % M;
     reinterpret_cast<float*>(src)[i * LD + j] = 0.5f * (Ab[i * M + j] + Ab[j * M + i]);
     v[i * LD + j] = (i == j) ? 1.0f : 0.0f;
   }
-  for (int idx = tid; idx < STEPS * H; idx += T) {
+  for (int idx = tid; idx < STEPS * H; idx += T + 32) {
     const int p = schedule[idx] & 0xff, q = (schedule[idx] >> 8) & 0xff;
-    ahead[idx] = schedule[idx] >> 16;
     table[idx] = {static_cast<int>(p * LD * sizeof(float)),
                   static_cast<int>(q * LD * sizeof(float)),
                   static_cast<int>(p * sizeof(float)),
                   static_cast<int>(q * sizeof(float))};
+    ahead[idx] = schedule[idx] >> 16;
   }
   __syncthreads();
 
-  // this thread's blocks (k, l) of A and items (row, l) of V
+  // A bulk thread's blocks (k, l) of A and items (row, l) of V
   int bk[BLOCKS], bl[BLOCKS], vl[ITEMS];
   char* vrow[ITEMS];
 #pragma unroll
@@ -165,107 +168,106 @@ jacobi_kernel(const float* __restrict__ A, const int* __restrict__ schedule,
     vl[i] = (tid + i * T) % H;
     vrow[i] = reinterpret_cast<char*>(v + (tid + i * T) / H * LD);
   }
-
-  // the pairs of this thread's rotation, blocks and items at one step
-  PairOffsets po, pk[BLOCKS], pl[BLOCKS], pv[ITEMS];
-  int e_off[4], next_meta;
-  auto read_pairs = [&](int r) {
+  PairOffsets pk[BLOCKS], pl[BLOCKS], pv[ITEMS];
+  auto bulk_pairs = [&](int r) {
     const PairOffsets* pairs = table + r * H;
-    po = pairs[own];
-    next_meta = ahead[r * H + own];
-    const PairOffsets kr = pairs[next_meta & 31], kc = pairs[(next_meta >> 6) & 31];
+#pragma unroll
+    for (int i = 0; i < BLOCKS; ++i) {
+      pk[i] = pairs[bk[i]];
+      pl[i] = pairs[bl[i]];
+    }
+#pragma unroll
+    for (int i = 0; i < ITEMS; ++i) pv[i] = pairs[vl[i]];
+  };
+
+  // The rotation warp: lane j < H holds the rotation of pair j at the
+  // current step, and computes the next step's while the bulk threads apply
+  // the current one.  `ahead` says where the next step's pivot a_p'q' lies
+  // in the current step's blocks: block (kr, kc), row side a, column side b.
+  const int own = lane % H;
+  Rotation cur;
+  int meta, e_off[4];
+  auto rot_pairs = [&](int r) {
+    const PairOffsets* pairs = table + r * H;
+    meta = ahead[r * H + own];
+    const PairOffsets kr = pairs[meta & 31], kc = pairs[(meta >> 6) & 31];
     e_off[0] = kr.row_p + kc.col_p;
     e_off[1] = kr.row_p + kc.col_q;
     e_off[2] = kr.row_q + kc.col_p;
     e_off[3] = kr.row_q + kc.col_q;
-#pragma unroll
-    for (int i = 0; i < BLOCKS; ++i) {
-      pk[i] = pairs[bk[i]];
-      pl[i] = kOwnL ? po : pairs[bl[i]];
-    }
-#pragma unroll
-    for (int i = 0; i < ITEMS; ++i) pv[i] = kOwnL ? po : pairs[vl[i]];
   };
-  read_pairs(0);
-  Rotation rot = rotation(at(src, po.row_p + po.col_p), at(src, po.row_q + po.col_q),
-                          at(src, po.row_p + po.col_q));
 
-  int sweep = 0;
+  if (rot_warp) {
+    const PairOffsets po = table[own];
+    cur = rotation(at(src, po.row_p + po.col_p), at(src, po.row_q + po.col_q),
+                   at(src, po.row_p + po.col_q));
+    if (lane < H) rot_buf[lane] = make_float4(cur.c, cur.s, cur.dp, cur.dq);
+    rot_pairs(0);
+  } else {
+    bulk_pairs(0);
+  }
+  __syncthreads();
+
+  int sweep = 0, parity = 0;
   while (sweep < max_sweeps) {
     ++sweep;
     int rotated = 0;
     for (int r = 0; r < STEPS; ++r) {
-      const float c = rot.c, s = rot.s, dp = rot.dp, dq = rot.dq;
-      rotated |= !rot.small;
-      float e[4];
+      const int next_r = r + 1 < STEPS ? r + 1 : 0;
+      if (rot_warp) {
+        // the next step's pivot of pair `own`, computed as the bulk threads
+        // compute that element of A, then its rotation
+        rotated |= !cur.small;
+        float e[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) e[i] = at(src, e_off[i]);
-      float a00[BLOCKS], a01[BLOCKS], a10[BLOCKS], a11[BLOCKS];
-#pragma unroll
-      for (int i = 0; i < BLOCKS; ++i) {
-        a00[i] = at(src, pk[i].row_p + pl[i].col_p);
-        a01[i] = at(src, pk[i].row_p + pl[i].col_q);
-        a10[i] = at(src, pk[i].row_q + pl[i].col_p);
-        a11[i] = at(src, pk[i].row_q + pl[i].col_q);
-      }
-      float xp[ITEMS], xq[ITEMS];
-#pragma unroll
-      for (int i = 0; i < ITEMS; ++i) {
-        xp[i] = at(vrow[i], pv[i].col_p);
-        xq[i] = at(vrow[i], pv[i].col_q);
-      }
-
-      // lookahead: the next step's pivot of pair `own`, computed as the
-      // bulk update computes it, then its rotation
-      Rotation next;
-      {
-        const int kr = next_meta & 31, a = (next_meta >> 5) & 1;
-        const int kc = (next_meta >> 6) & 31, b = (next_meta >> 11) & 1;
-        const float ckr = lane_of(c, kr), skr = lane_of(s, kr);
-        const float ckc = lane_of(c, kc), skc = lane_of(s, kc);
-        const float dpr = lane_of(dp, kr), dqr = lane_of(dq, kr);
-        const float dpc = lane_of(dp, kc), dqc = lane_of(dq, kc);
+        for (int i = 0; i < 4; ++i) e[i] = at(src, e_off[i]);
+        const int kr = meta & 31, a = (meta >> 5) & 1;
+        const int kc = (meta >> 6) & 31, b = (meta >> 11) & 1;
+        const float ckr = lane_of(cur.c, kr), skr = lane_of(cur.s, kr);
+        const float ckc = lane_of(cur.c, kc), skc = lane_of(cur.s, kc);
+        const float dpr = lane_of(cur.dp, kr), dqr = lane_of(cur.dq, kr);
+        const float dpc = lane_of(cur.dp, kc), dqc = lane_of(cur.dq, kc);
         const float r0 = a ? skr * e[0] + ckr * e[2] : ckr * e[0] - skr * e[2];
         const float r1 = a ? skr * e[1] + ckr * e[3] : ckr * e[1] - skr * e[3];
         const float apq = b ? skc * r0 + ckc * r1 : ckc * r0 - skc * r1;
-        next = rotation(a ? dqr : dpr, b ? dqc : dpc, apq);
-      }
-
-      // A <- J^T A J, block (k, l) = J_k^T A_kl J_l into the other buffer;
-      // a diagonal block (k == l) takes the pivot block instead
+        rot_pairs(next_r);
+        cur = rotation(a ? dqr : dpr, b ? dqc : dpc, apq);
+        if (lane < H) {
+          rot_buf[(parity ^ 1) * H + lane] = make_float4(cur.c, cur.s, cur.dp, cur.dq);
+        }
+      } else {
+        const float4* rots = rot_buf + parity * H;
+        // A <- J^T A J, block (k, l) = J_k^T A_kl J_l into the other
+        // buffer; a diagonal block (k == l) takes the pivot block instead
 #pragma unroll
-      for (int i = 0; i < BLOCKS; ++i) {
-        const float ck = lane_of(c, bk[i]), sk = lane_of(s, bk[i]);
-        const float cl = kOwnL ? c : lane_of(c, bl[i]);
-        const float sl = kOwnL ? s : lane_of(s, bl[i]);
-        const float dpl = kOwnL ? dp : lane_of(dp, bl[i]);
-        const float dql = kOwnL ? dq : lane_of(dq, bl[i]);
-        const bool pivot = bk[i] == bl[i];
-        const float r00 = ck * a00[i] - sk * a10[i];
-        const float r01 = ck * a01[i] - sk * a11[i];
-        const float r10 = sk * a00[i] + ck * a10[i];
-        const float r11 = sk * a01[i] + ck * a11[i];
-        at(dst, pk[i].row_p + pl[i].col_p) = pivot ? dpl : cl * r00 - sl * r01;
-        at(dst, pk[i].row_p + pl[i].col_q) = pivot ? 0.0f : sl * r00 + cl * r01;
-        at(dst, pk[i].row_q + pl[i].col_p) = pivot ? 0.0f : cl * r10 - sl * r11;
-        at(dst, pk[i].row_q + pl[i].col_q) = pivot ? dql : sl * r10 + cl * r11;
-      }
-
-      // V <- V J in place: row `vrow`, columns (p_l, q_l)
+        for (int i = 0; i < BLOCKS; ++i) {
+          const float a00 = at(src, pk[i].row_p + pl[i].col_p);
+          const float a01 = at(src, pk[i].row_p + pl[i].col_q);
+          const float a10 = at(src, pk[i].row_q + pl[i].col_p);
+          const float a11 = at(src, pk[i].row_q + pl[i].col_q);
+          const float4 rk = rots[bk[i]], rl = rots[bl[i]];
+          const bool pivot = bk[i] == bl[i];
+          const float r00 = rk.x * a00 - rk.y * a10, r01 = rk.x * a01 - rk.y * a11;
+          const float r10 = rk.y * a00 + rk.x * a10, r11 = rk.y * a01 + rk.x * a11;
+          at(dst, pk[i].row_p + pl[i].col_p) = pivot ? rl.z : rl.x * r00 - rl.y * r01;
+          at(dst, pk[i].row_p + pl[i].col_q) = pivot ? 0.0f : rl.y * r00 + rl.x * r01;
+          at(dst, pk[i].row_q + pl[i].col_p) = pivot ? 0.0f : rl.x * r10 - rl.y * r11;
+          at(dst, pk[i].row_q + pl[i].col_q) = pivot ? rl.w : rl.y * r10 + rl.x * r11;
+        }
+        // V <- V J in place: row `vrow`, columns (p_l, q_l)
 #pragma unroll
-      for (int i = 0; i < ITEMS; ++i) {
-        const float cl = kOwnL ? c : lane_of(c, vl[i]);
-        const float sl = kOwnL ? s : lane_of(s, vl[i]);
-        at(vrow[i], pv[i].col_p) = cl * xp[i] - sl * xq[i];
-        at(vrow[i], pv[i].col_q) = sl * xp[i] + cl * xq[i];
+        for (int i = 0; i < ITEMS; ++i) {
+          const float xp = at(vrow[i], pv[i].col_p), xq = at(vrow[i], pv[i].col_q);
+          const float4 rl = rots[vl[i]];
+          at(vrow[i], pv[i].col_p) = rl.x * xp - rl.y * xq;
+          at(vrow[i], pv[i].col_q) = rl.y * xp + rl.x * xq;
+        }
+        bulk_pairs(next_r);
       }
-
-      // the next step's pairs, read before the barrier
-      read_pairs(r + 1 < STEPS ? r + 1 : 0);
-      rot = next;
       char* tmp = src;
       src = dst;
       dst = tmp;
+      parity ^= 1;
       if (r + 1 < STEPS) __syncthreads();
     }
     if (!__syncthreads_or(rotated)) break;
@@ -274,7 +276,7 @@ jacobi_kernel(const float* __restrict__ A, const int* __restrict__ schedule,
   const float* a = reinterpret_cast<const float*>(src);
   float* eb = evals + static_cast<size_t>(blockIdx.x) * M;
   float* vb = evecs + static_cast<size_t>(blockIdx.x) * M * M;
-  for (int idx = tid; idx < M * M; idx += T) {
+  for (int idx = tid; idx < M * M; idx += T + 32) {
     const int i = idx / M, j = idx % M;
     vb[i * M + j] = v[i * LD + j];
     if (i == j) eb[i] = a[i * LD + i];
@@ -283,15 +285,14 @@ jacobi_kernel(const float* __restrict__ A, const int* __restrict__ schedule,
 }
 
 template <int M>
-int launch(const float* A, const int* schedule, float* evals,
-           float* evecs, int* sweeps_run, int batch, int max_sweeps,
-           cudaStream_t stream) {
+int launch(const float* A, const int* schedule, float* evals, float* evecs,
+           int* sweeps_run, int batch, int max_sweeps, cudaStream_t stream) {
   constexpr size_t bytes = shared_bytes<M>();
   static const cudaError_t configured = cudaFuncSetAttribute(
       jacobi_kernel<M>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(bytes));
   if (configured != cudaSuccess) return static_cast<int>(configured);
-  jacobi_kernel<M><<<batch, Threads<M>::value, bytes, stream>>>(
+  jacobi_kernel<M><<<batch, Threads<M>::value + 32, bytes, stream>>>(
       A, schedule, evals, evecs, sweeps_run, max_sweeps);
   return static_cast<int>(cudaGetLastError());
 }
