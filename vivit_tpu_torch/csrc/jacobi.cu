@@ -79,10 +79,19 @@ struct PairOffsets {
   int row_p, row_q, col_p, col_q;
 };
 
+// Where the rotation warp finds, at one step, the next step's pivot a_p'q'
+// of its pair: the byte offsets of the current step's 2x2 block (kr, kc)
+// that holds it, and kr | a << 5 | kc << 6 | b << 11 (a, b: the side of
+// p' in pair kr and of q' in pair kc, 0 for p and 1 for q).
+struct alignas(16) Ahead {
+  int off[4];
+  int meta;
+};
+
 template <int M>
 constexpr size_t shared_bytes() {
   return 3 * M * (M + 1) * sizeof(float) +
-         (M - 1) * (M / 2) * (sizeof(PairOffsets) + sizeof(int)) +
+         (M - 1) * (M / 2) * (sizeof(PairOffsets) + sizeof(Ahead)) +
          2 * (M / 2) * sizeof(float4);
 }
 
@@ -127,13 +136,16 @@ jacobi_kernel(const float* __restrict__ A, const int* __restrict__ schedule,
   constexpr int ITEMS = M * H / T;   // (row, pair) items of V per bulk thread
   static_assert(H * H % T == 0 && M * H % T == 0, "uneven split");
   static_assert(T % 32 == 0 && H <= 32, "one warp holds every pair's rotation");
+  // where H divides 32, every block and item of a bulk thread has the same
+  // pair l, lane % H
+  constexpr bool kOneL = 32 % H == 0;
 
   extern __shared__ float smem[];
   char* src = reinterpret_cast<char*>(smem);
   char* dst = reinterpret_cast<char*>(smem + M * LD);
   float* v = smem + 2 * M * LD;
   PairOffsets* table = reinterpret_cast<PairOffsets*>(smem + 3 * M * LD);
-  int* ahead = reinterpret_cast<int*>(table + STEPS * H);
+  Ahead* ahead = reinterpret_cast<Ahead*>(table + STEPS * H);
   float4* rot_buf = reinterpret_cast<float4*>(ahead + STEPS * H);  // [2][H]
 
   const int tid = threadIdx.x;
@@ -151,7 +163,14 @@ jacobi_kernel(const float* __restrict__ A, const int* __restrict__ schedule,
                   static_cast<int>(q * LD * sizeof(float)),
                   static_cast<int>(p * sizeof(float)),
                   static_cast<int>(q * sizeof(float))};
-    ahead[idx] = schedule[idx] >> 16;
+  }
+  __syncthreads();
+  for (int idx = tid; idx < STEPS * H; idx += T + 32) {
+    const int meta = schedule[idx] >> 16;
+    const PairOffsets* pairs = table + idx / H * H;
+    const PairOffsets kr = pairs[meta & 31], kc = pairs[(meta >> 6) & 31];
+    ahead[idx] = {{kr.row_p + kc.col_p, kr.row_p + kc.col_q,
+                   kr.row_q + kc.col_p, kr.row_q + kc.col_q}, meta};
   }
   __syncthreads();
 
@@ -168,43 +187,37 @@ jacobi_kernel(const float* __restrict__ A, const int* __restrict__ schedule,
     vl[i] = (tid + i * T) % H;
     vrow[i] = reinterpret_cast<char*>(v + (tid + i * T) / H * LD);
   }
-  PairOffsets pk[BLOCKS], pl[BLOCKS], pv[ITEMS];
+  struct BulkPairs {
+    PairOffsets k[BLOCKS], l[BLOCKS], v[ITEMS];
+  };
   auto bulk_pairs = [&](int r) {
     const PairOffsets* pairs = table + r * H;
+    BulkPairs out;
 #pragma unroll
     for (int i = 0; i < BLOCKS; ++i) {
-      pk[i] = pairs[bk[i]];
-      pl[i] = pairs[bl[i]];
+      out.k[i] = pairs[bk[i]];
+      out.l[i] = kOneL && i > 0 ? out.l[0] : pairs[bl[i]];
     }
 #pragma unroll
-    for (int i = 0; i < ITEMS; ++i) pv[i] = pairs[vl[i]];
+    for (int i = 0; i < ITEMS; ++i) out.v[i] = kOneL ? out.l[0] : pairs[vl[i]];
+    return out;
   };
 
   // The rotation warp: lane j < H holds the rotation of pair j at the
   // current step, and computes the next step's while the bulk threads apply
-  // the current one.  `ahead` says where the next step's pivot a_p'q' lies
-  // in the current step's blocks: block (kr, kc), row side a, column side b.
+  // the current one.
   const int own = lane % H;
   Rotation cur;
-  int meta, e_off[4];
-  auto rot_pairs = [&](int r) {
-    const PairOffsets* pairs = table + r * H;
-    meta = ahead[r * H + own];
-    const PairOffsets kr = pairs[meta & 31], kc = pairs[(meta >> 6) & 31];
-    e_off[0] = kr.row_p + kc.col_p;
-    e_off[1] = kr.row_p + kc.col_q;
-    e_off[2] = kr.row_q + kc.col_p;
-    e_off[3] = kr.row_q + kc.col_q;
-  };
-
+  Ahead look;
+  BulkPairs bp;
   if (rot_warp) {
     const PairOffsets po = table[own];
     cur = rotation(at(src, po.row_p + po.col_p), at(src, po.row_q + po.col_q),
                    at(src, po.row_p + po.col_q));
     if (lane < H) rot_buf[lane] = make_float4(cur.c, cur.s, cur.dp, cur.dq);
-    rot_pairs(0);
+    look = ahead[own];
   } else {
-    bulk_pairs(0);
+    bp = bulk_pairs(0);
   }
   __syncthreads();
 
@@ -214,15 +227,19 @@ jacobi_kernel(const float* __restrict__ A, const int* __restrict__ schedule,
     int rotated = 0;
     for (int r = 0; r < STEPS; ++r) {
       const int next_r = r + 1 < STEPS ? r + 1 : 0;
+      // the table entries of the next step are read first: they do not
+      // depend on this step, and the barrier waits for their loads
       if (rot_warp) {
         // the next step's pivot of pair `own`, computed as the bulk threads
         // compute that element of A, then its rotation
         rotated |= !cur.small;
+        const Ahead here = look;
         float e[4];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) e[i] = at(src, e_off[i]);
-        const int kr = meta & 31, a = (meta >> 5) & 1;
-        const int kc = (meta >> 6) & 31, b = (meta >> 11) & 1;
+        for (int i = 0; i < 4; ++i) e[i] = at(src, here.off[i]);
+        look = ahead[next_r * H + own];
+        const int kr = here.meta & 31, a = (here.meta >> 5) & 1;
+        const int kc = (here.meta >> 6) & 31, b = (here.meta >> 11) & 1;
         const float ckr = lane_of(cur.c, kr), skr = lane_of(cur.s, kr);
         const float ckc = lane_of(cur.c, kc), skc = lane_of(cur.s, kc);
         const float dpr = lane_of(cur.dp, kr), dqr = lane_of(cur.dq, kr);
@@ -230,12 +247,17 @@ jacobi_kernel(const float* __restrict__ A, const int* __restrict__ schedule,
         const float r0 = a ? skr * e[0] + ckr * e[2] : ckr * e[0] - skr * e[2];
         const float r1 = a ? skr * e[1] + ckr * e[3] : ckr * e[1] - skr * e[3];
         const float apq = b ? skc * r0 + ckc * r1 : ckc * r0 - skc * r1;
-        rot_pairs(next_r);
+        // the pivot's loads are in: the bulk threads may start theirs
+        asm volatile("bar.arrive 1, %0;" ::"n"(T + 32) : "memory");
         cur = rotation(a ? dqr : dpr, b ? dqc : dpc, apq);
         if (lane < H) {
           rot_buf[(parity ^ 1) * H + lane] = make_float4(cur.c, cur.s, cur.dp, cur.dq);
         }
       } else {
+        // the rotation warp's loads go first, ahead of the bulk's queue
+        asm volatile("bar.sync 1, %0;" ::"n"(T + 32) : "memory");
+        const BulkPairs here = bp;
+        const PairOffsets *pk = here.k, *pl = here.l, *pv = here.v;
         const float4* rots = rot_buf + parity * H;
         // A <- J^T A J, block (k, l) = J_k^T A_kl J_l into the other
         // buffer; a diagonal block (k == l) takes the pivot block instead
@@ -245,7 +267,7 @@ jacobi_kernel(const float* __restrict__ A, const int* __restrict__ schedule,
           const float a01 = at(src, pk[i].row_p + pl[i].col_q);
           const float a10 = at(src, pk[i].row_q + pl[i].col_p);
           const float a11 = at(src, pk[i].row_q + pl[i].col_q);
-          const float4 rk = rots[bk[i]], rl = rots[bl[i]];
+          const float4 rk = rots[bk[i]], rl = rots[kOneL ? bl[0] : bl[i]];
           const bool pivot = bk[i] == bl[i];
           const float r00 = rk.x * a00 - rk.y * a10, r01 = rk.x * a01 - rk.y * a11;
           const float r10 = rk.y * a00 + rk.x * a10, r11 = rk.y * a01 + rk.x * a11;
@@ -258,11 +280,11 @@ jacobi_kernel(const float* __restrict__ A, const int* __restrict__ schedule,
 #pragma unroll
         for (int i = 0; i < ITEMS; ++i) {
           const float xp = at(vrow[i], pv[i].col_p), xq = at(vrow[i], pv[i].col_q);
-          const float4 rl = rots[vl[i]];
+          const float4 rl = rots[kOneL ? bl[0] : vl[i]];
           at(vrow[i], pv[i].col_p) = rl.x * xp - rl.y * xq;
           at(vrow[i], pv[i].col_q) = rl.y * xp + rl.x * xq;
         }
-        bulk_pairs(next_r);
+        bp = bulk_pairs(next_r);
       }
       char* tmp = src;
       src = dst;
