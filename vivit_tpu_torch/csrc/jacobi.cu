@@ -259,30 +259,44 @@ jacobi_kernel(const float* __restrict__ A, const int* __restrict__ schedule,
         const BulkPairs here = bp;
         const PairOffsets *pk = here.k, *pl = here.l, *pv = here.v;
         const float4* rots = rot_buf + parity * H;
+        // all loads first, then the arithmetic and the stores
+        float a00[BLOCKS], a01[BLOCKS], a10[BLOCKS], a11[BLOCKS];
+        float4 rk[BLOCKS], rl[BLOCKS];
+#pragma unroll
+        for (int i = 0; i < BLOCKS; ++i) {
+          a00[i] = at(src, pk[i].row_p + pl[i].col_p);
+          a01[i] = at(src, pk[i].row_p + pl[i].col_q);
+          a10[i] = at(src, pk[i].row_q + pl[i].col_p);
+          a11[i] = at(src, pk[i].row_q + pl[i].col_q);
+          rk[i] = rots[bk[i]];
+          rl[i] = kOneL && i > 0 ? rl[0] : rots[bl[i]];
+        }
+        float xp[ITEMS], xq[ITEMS];
+        float4 rv[ITEMS];
+#pragma unroll
+        for (int i = 0; i < ITEMS; ++i) {
+          xp[i] = at(vrow[i], pv[i].col_p);
+          xq[i] = at(vrow[i], pv[i].col_q);
+          rv[i] = kOneL ? rl[0] : rots[vl[i]];
+        }
         // A <- J^T A J, block (k, l) = J_k^T A_kl J_l into the other
         // buffer; a diagonal block (k == l) takes the pivot block instead
 #pragma unroll
         for (int i = 0; i < BLOCKS; ++i) {
-          const float a00 = at(src, pk[i].row_p + pl[i].col_p);
-          const float a01 = at(src, pk[i].row_p + pl[i].col_q);
-          const float a10 = at(src, pk[i].row_q + pl[i].col_p);
-          const float a11 = at(src, pk[i].row_q + pl[i].col_q);
-          const float4 rk = rots[bk[i]], rl = rots[kOneL ? bl[0] : bl[i]];
+          const float ck = rk[i].x, sk = rk[i].y, cl = rl[i].x, sl = rl[i].y;
           const bool pivot = bk[i] == bl[i];
-          const float r00 = rk.x * a00 - rk.y * a10, r01 = rk.x * a01 - rk.y * a11;
-          const float r10 = rk.y * a00 + rk.x * a10, r11 = rk.y * a01 + rk.x * a11;
-          at(dst, pk[i].row_p + pl[i].col_p) = pivot ? rl.z : rl.x * r00 - rl.y * r01;
-          at(dst, pk[i].row_p + pl[i].col_q) = pivot ? 0.0f : rl.y * r00 + rl.x * r01;
-          at(dst, pk[i].row_q + pl[i].col_p) = pivot ? 0.0f : rl.x * r10 - rl.y * r11;
-          at(dst, pk[i].row_q + pl[i].col_q) = pivot ? rl.w : rl.y * r10 + rl.x * r11;
+          const float r00 = ck * a00[i] - sk * a10[i], r01 = ck * a01[i] - sk * a11[i];
+          const float r10 = sk * a00[i] + ck * a10[i], r11 = sk * a01[i] + ck * a11[i];
+          at(dst, pk[i].row_p + pl[i].col_p) = pivot ? rl[i].z : cl * r00 - sl * r01;
+          at(dst, pk[i].row_p + pl[i].col_q) = pivot ? 0.0f : sl * r00 + cl * r01;
+          at(dst, pk[i].row_q + pl[i].col_p) = pivot ? 0.0f : cl * r10 - sl * r11;
+          at(dst, pk[i].row_q + pl[i].col_q) = pivot ? rl[i].w : sl * r10 + cl * r11;
         }
         // V <- V J in place: row `vrow`, columns (p_l, q_l)
 #pragma unroll
         for (int i = 0; i < ITEMS; ++i) {
-          const float xp = at(vrow[i], pv[i].col_p), xq = at(vrow[i], pv[i].col_q);
-          const float4 rl = rots[kOneL ? bl[0] : vl[i]];
-          at(vrow[i], pv[i].col_p) = rl.x * xp - rl.y * xq;
-          at(vrow[i], pv[i].col_q) = rl.y * xp + rl.x * xq;
+          at(vrow[i], pv[i].col_p) = rv[i].x * xp[i] - rv[i].y * xq[i];
+          at(vrow[i], pv[i].col_q) = rv[i].y * xp[i] + rv[i].x * xq[i];
         }
         bp = bulk_pairs(next_r);
       }
