@@ -11,8 +11,8 @@ Phases, each printed as it runs:
    the eigensolver, plus two degenerate inputs; the sweeps the kernel ran
    (its exact early exit) against those of the plain version under the same
    rule; times of the kernel, its plain version and ``torch.linalg.eigh`` on
-   the same batch (CUDA events, median), beside the bound on the sweeps run
-   and on all 12.
+   the same batch (CUDA events around 10 calls back to back and around one
+   call, median), beside the bound on the sweeps run and on all 12.
    Then a **shape sweep** for the dispatch envelope: the kernel against
    ``torch.linalg.eigh`` at ``b in {1, 8, 37, 64}`` x ``m in {32, 48, 64}``,
    ``b*m <= 2048``, one line per shape.
@@ -22,7 +22,9 @@ Phases, each printed as it runs:
    ``params_from_flax``; data: numpy ``default_rng(0)``.  Checks the kernel
    launch count, the guard, the structural zeros, and both the deflated
    Gram's dc eigenvalues and the entry's returned spectrum against float64;
-   times the step and its three stages.
+   runs the two window batches of that solve again through the kernel and
+   its plain version (equal sweeps) and times them beside
+   ``torch.linalg.eigh``; times the step and its three stages.
 4. A JSON line of the kernels, then ``{"ok": true, "device": ...}`` last.
 
 Any failed check exits non-zero.  Without a CUDA device it exits 2 and
@@ -56,8 +58,10 @@ def check(cond, msg):
         raise SmokeFailure(msg)
 
 
-def cuda_ms(fn, reps, warmup=2):
-    """Median device time of ``fn`` in ms (CUDA events around each call)."""
+def cuda_ms(fn, reps, warmup=2, calls=1):
+    """Median time of one call of ``fn`` in ms: CUDA events around ``calls``
+    back-to-back calls, over ``calls``, median of ``reps`` such runs.  With
+    ``calls=1`` the events also hold the host's time before the launch."""
     import torch
 
     for _ in range(warmup):
@@ -67,10 +71,11 @@ def cuda_ms(fn, reps, warmup=2):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(calls):
+            fn()
         end.record()
         torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / calls)
     return float(np.median(times))
 
 
@@ -122,17 +127,21 @@ def phase_kernel(jc):
                 f"max|kernel-f64| {err64:.3e}, sweeps run {least}-{most} "
                 f"(plain {int(sw_p.min())}-{most_p})")
         if (b, m) in HEADLINE_SHAPES:
-            t_k = cuda_ms(lambda: jc.batched_eigh_jacobi_cuda(A), reps=30)
+            t_k = cuda_ms(lambda: jc.batched_eigh_jacobi_cuda(A), reps=30, calls=10)
+            t_k1 = cuda_ms(lambda: jc.batched_eigh_jacobi_cuda(A), reps=30)
             t_p = cuda_ms(lambda: jc.batched_eigh_jacobi_plain(A, exit_early=True),
                           reps=3, warmup=1)
-            t_l = cuda_ms(lambda: torch.linalg.eigh(A), reps=10)
+            t_l = cuda_ms(lambda: torch.linalg.eigh(A), reps=30, calls=10)
+            t_l1 = cuda_ms(lambda: torch.linalg.eigh(A), reps=30)
             # the bound on the sweeps each matrix ran, and on all 12
             bound, by = jc.bound_ms(b, m, int(sw.sum()), PEAK_F32_FLOPS, PEAK_BYTES)
             bound12, _ = jc.bound_ms(b, m, b * jc.SWEEPS, PEAK_F32_FLOPS, PEAK_BYTES)
             timing[(b, m)] = (t_k, t_p, t_l, bound, by, most)
             line += (f"; kernel {t_k:.4f} ms, plain {t_p:.3f} ms, "
-                     f"torch.linalg.eigh {t_l:.4f} ms, bound {bound:.6f} ms ({by}, "
-                     f"{int(sw.sum())} matrix-sweeps), 12-sweep bound {bound12:.6f} ms")
+                     f"torch.linalg.eigh {t_l:.4f} ms (10 calls back to back; one "
+                     f"call alone: kernel {t_k1:.4f} ms, torch.linalg.eigh {t_l1:.4f} ms), "
+                     f"bound {bound:.6f} ms ({by}, {int(sw.sum())} matrix-sweeps), "
+                     f"12-sweep bound {bound12:.6f} ms")
         print(line, flush=True)
 
     # degenerate inputs: tau == 0 everywhere at the start, and the skip
@@ -162,8 +171,8 @@ def phase_shape_sweep(jc):
         ev, V, sw = jc.batched_eigh_jacobi_cuda(A, return_sweeps=True)
         torch.cuda.synchronize()
         check_eigh(A, ev, V, f"shape sweep [{b},{m},{m}]")
-        t_k = cuda_ms(lambda: jc.batched_eigh_jacobi_cuda(A), reps=30)
-        t_l = cuda_ms(lambda: torch.linalg.eigh(A), reps=10)
+        t_k = cuda_ms(lambda: jc.batched_eigh_jacobi_cuda(A), reps=10, calls=10)
+        t_l = cuda_ms(lambda: torch.linalg.eigh(A), reps=10, calls=10)
         print(f"shape sweep [{b},{m},{m}]: kernel {t_k:.4f} ms, torch.linalg.eigh "
               f"{t_l:.4f} ms, kernel/eigh {t_k / t_l:.3f}, sweeps run "
               f"{int(sw.min())}-{int(sw.max())}", flush=True)
@@ -173,9 +182,10 @@ def phase_main_path(jc):
     import torch
 
     import vivit_tpu_torch as vtt
+    from vivit_tpu_torch import eigdc
     from vivit_tpu_torch.convert import params_from_flax
     from vivit_tpu_torch.eig import full_eigh
-    from vivit_tpu_torch.eigdc import eigvalsh_dc
+    from vivit_tpu_torch.kernels.jacobi import jacobi_supported
     from vivit_tpu_torch.models import cnn3c3d_flax_params
     from vivit_tpu_torch.precision import _PRECISIONS, full_f32
     from vivit_tpu_torch.structured import gram_matrix_mixed
@@ -215,11 +225,24 @@ def phase_main_path(jc):
     n_zero = int((evals == 0).sum())
     check(n_zero == N, f"{n_zero} exact zeros, expected {N}")
 
-    # the deflated Gram's dc eigenvalues against float64
+    # the deflated Gram's dc eigenvalues against float64, keeping the window
+    # batches that the solve hands the kernel
     with full_f32():
         vt = tapped_ggn_sqrt_vt(model, loss, X, y, deflate_ce_null=True)
         gram = gram_matrix_mixed(vt, generic_precision=_PRECISIONS["bf16"])
-        ev_dc = eigvalsh_dc(gram)
+        windows = []
+        solve = eigdc.batched_eigh
+
+        def recording(A):
+            if jacobi_supported(A.shape, A.dtype):
+                windows.append(A.clone())
+            return solve(A)
+
+        eigdc.batched_eigh = recording
+        try:
+            ev_dc = eigdc.eigvalsh_dc(gram)
+        finally:
+            eigdc.batched_eigh = solve
     ref = torch.linalg.eigvalsh(gram.double())
     err = (ev_dc.double() - ref).abs()
     tol = ATOL * ref.abs().max() + RTOL * ref.abs()
@@ -227,6 +250,20 @@ def phase_main_path(jc):
     print(f"deflated Gram {tuple(gram.shape)}: dc vs float64 max err/tol {ratio:.3f}, "
           f"{int((err > tol).sum())} violations", flush=True)
     check(ratio <= 1.0, f"dc eigenvalues off float64 (max err/tol {ratio:.2f})")
+    check(len(windows) == 2, f"{len(windows)} window batches, expected 2")
+    for A in windows:
+        b, m, _ = A.shape
+        ev, V, sw = jc.batched_eigh_jacobi_cuda(A, return_sweeps=True)
+        ev_p, V_p, sw_p = jc.batched_eigh_jacobi_plain(A, exit_early=True,
+                                                       return_sweeps=True)
+        torch.cuda.synchronize()
+        check(torch.equal(sw, sw_p), f"main-path window [{b},{m},{m}]: sweeps differ")
+        gap = max((ev - ev_p).abs().max().item(), (V - V_p).abs().max().item())
+        t_k = cuda_ms(lambda: jc.batched_eigh_jacobi_cuda(A), reps=30, calls=10)
+        t_l = cuda_ms(lambda: torch.linalg.eigh(A), reps=30, calls=10)
+        print(f"main-path window [{b},{m},{m}]: sweeps run {int(sw.min())}-{int(sw.max())}, "
+              f"max|kernel-plain| {gap:.3e}, kernel {t_k:.4f} ms, torch.linalg.eigh "
+              f"{t_l:.4f} ms (10 calls back to back)", flush=True)
     # the entry's own output: N structural zeros joined to the same spectrum
     ref_all = torch.sort(torch.cat([ref.new_zeros(N), ref])).values
     err = (evals.double() - ref_all).abs()
@@ -299,7 +336,9 @@ def profile_step(step, top=12):
     print(f"profile (one step under the profiler, {wall:.3f} ms host clock): "
           f"{sum(e.count for e in kernels)} kernel launches, device busy "
           f"{busy:.3f} ms = {busy / wall:.1%} of the step", flush=True)
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
+    ranked = sorted(kernels, key=lambda e: -e.self_device_time_total)
+    shown = ranked[:top] + [e for e in ranked[top:] if "jacobi_kernel" in e.key]
+    for e in shown:
         print(f"  device {e.self_device_time_total / 1e3:9.3f} ms {e.count:6d}x  "
               f"{e.key[:100]}", flush=True)
     host = [e for e in prof.key_averages() if e.device_type == DeviceType.CPU]

@@ -12,12 +12,16 @@ import torch
 
 from vivit_tpu.kernels.jacobi_pallas import batched_eigh_jacobi as pallas_jacobi
 
+import vivit_tpu_torch.eigdc as port_eigdc
 from vivit_tpu_torch.kernels.jacobi import batched_eigh, jacobi_supported
 from vivit_tpu_torch.kernels.jacobi_cuda import (
+    SWEEPS,
     batched_eigh_jacobi,
     batched_eigh_jacobi_cuda,
     batched_eigh_jacobi_plain,
+    bound_ms,
     round_robin_pairs,
+    schedule_table,
 )
 
 SHAPES = [(5, 32), (37, 32), (4, 48), (2, 64)]
@@ -153,9 +157,119 @@ def test_cpu_tensor_takes_plain_version():
 def test_kernel_wrapper_rejects_what_it_cannot_take():
     with pytest.raises(ValueError, match="CUDA tensor"):
         batched_eigh_jacobi_cuda(torch.zeros(2, 32, 32))
+    with pytest.raises(ValueError, match="compiled for m = 32, 48 or 64"):
+        batched_eigh_jacobi_cuda(torch.zeros(2, 34, 34))
     with pytest.raises(ValueError, match="even"):
         batched_eigh_jacobi_plain(torch.zeros(2, 33, 33))
     with pytest.raises(ValueError, match="m <= 64"):
         batched_eigh_jacobi_plain(torch.zeros(1, 66, 66))
     with pytest.raises(TypeError, match="float32"):
         batched_eigh_jacobi_plain(torch.zeros(1, 32, 32, dtype=torch.float64))
+
+
+@pytest.mark.parametrize("m", [2, 16, 34, 62])
+def test_kernel_wrapper_takes_only_the_compiled_sizes(m):
+    """The plain version takes any even m <= 64; the kernel is compiled for
+    the envelope's m only, and its wrapper says so before it looks at the
+    device."""
+    A = torch.tensor(_random_sym(1, m, seed=m))
+    batched_eigh_jacobi_plain(A)
+    with pytest.raises(ValueError, match="compiled for m = 32, 48 or 64"):
+        batched_eigh_jacobi_cuda(A)
+
+
+@pytest.mark.parametrize("m", [8, 32, 48, 64])
+def test_schedule_table_is_the_round_robin(m):
+    """The table the wrapper hands the kernel: pair j of step r is
+    round_robin_pairs' pair, and its lookahead fields name the block of step
+    r that holds the pivot of pair j at step r+1 (step 0 after the last)."""
+    P, Q = round_robin_pairs(m)
+    table = schedule_table(m)
+    assert table.dtype == torch.int32 and table.shape == (m - 1, m // 2)
+    assert torch.equal(table & 0xFF, P) and torch.equal((table >> 8) & 0xFF, Q)
+    meta = table >> 16
+    kr, a = meta & 31, (meta >> 5) & 1
+    kc, b = (meta >> 6) & 31, (meta >> 11) & 1
+    for r in range(m - 1):
+        nxt = (r + 1) % (m - 1)
+        rows = torch.where(a[r] == 1, Q[r, kr[r]], P[r, kr[r]])
+        cols = torch.where(b[r] == 1, Q[r, kc[r]], P[r, kc[r]])
+        assert torch.equal(rows, P[nxt]) and torch.equal(cols, Q[nxt])
+
+
+EXIT_SHAPES = [(5, 32), (4, 48), (2, 64)]
+
+
+def _both_ways(A):
+    full = batched_eigh_jacobi_plain(A, return_sweeps=True)
+    short = batched_eigh_jacobi_plain(A, exit_early=True, return_sweeps=True)
+    return full, short
+
+
+@pytest.mark.parametrize("b,m", EXIT_SHAPES, ids=[f"{b}x{m}" for b, m in EXIT_SHAPES])
+def test_exit_rule_returns_the_12_sweep_result(b, m):
+    """After a sweep in which every rotation was the identity, every later
+    sweep is the identity: stopping there gives the 12-sweep outputs."""
+    full, short = _both_ways(torch.tensor(_random_sym(b, m, seed=3 * m + b)))
+    for got, want in zip(short, full):
+        assert torch.equal(got, want)
+    assert full[2].dtype == torch.int32 and bool((full[2] <= SWEEPS).all())
+
+
+@pytest.fixture(scope="module")
+def solver_windows():
+    """The window batches that the port's eigvalsh_dc hands the Jacobi
+    path at n=384 on the ggn-like spectrum."""
+    rng = np.random.default_rng(0)
+    n = 384
+    Qm, _ = np.linalg.qr(rng.standard_normal((n, n)))
+    lam = np.exp(-np.linspace(0, 11, n)) * 250.0 + 1e-7
+    H = torch.tensor(((Qm * lam) @ Qm.T).astype(np.float32))
+    seen = []
+
+    def recording(A):
+        if jacobi_supported(A.shape, A.dtype):
+            seen.append(A.clone())
+        return batched_eigh(A)
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(port_eigdc, "batched_eigh", recording)
+            port_eigdc.eigvalsh_dc(H)
+    finally:
+        torch.set_num_threads(threads)
+    assert seen
+    return seen
+
+
+def test_exit_rule_returns_the_12_sweep_result_on_solver_windows(solver_windows):
+    for A in solver_windows:
+        full, short = _both_ways(A)
+        for got, want in zip(short, full):
+            assert torch.equal(got, want)
+
+
+def test_solver_windows_exit_before_12_sweeps(solver_windows):
+    for A in solver_windows:
+        _, _, sweeps = batched_eigh_jacobi_plain(A, exit_early=True, return_sweeps=True)
+        assert int(sweeps.max()) < SWEEPS
+
+
+def test_diagonal_input_exits_after_one_sweep():
+    d = np.random.default_rng(5).normal(size=(2, 32)).astype(np.float32)
+    A = torch.tensor(np.stack([np.diag(x) for x in d]))
+    ev, _, sweeps = batched_eigh_jacobi_plain(A, exit_early=True, return_sweeps=True)
+    assert torch.equal(sweeps, torch.ones(2, dtype=torch.int32))
+    assert torch.equal(ev, torch.sort(torch.tensor(d), dim=-1).values)
+
+
+def test_bound_counts_the_sweeps_run():
+    """The operations bound scales with the matrix-sweeps run; the bytes
+    bound does not depend on them."""
+    full, by = bound_ms(37, 32, 37 * SWEEPS, 67e12, 3.35e12)
+    half, _ = bound_ms(37, 32, 37 * SWEEPS // 2, 67e12, 3.35e12)
+    assert by == "operations" and half == pytest.approx(full / 2)
+    none, by0 = bound_ms(37, 32, 0, 67e12, 3.35e12)
+    assert by0 == "bytes" and none > 0

@@ -14,45 +14,54 @@
 //
 // Ordering: the round-robin ("circle method") tournament of
 // jacobi_cuda.round_robin_pairs.  The wrapper hands the kernel one sweep's
-// schedule, [m-1, m/2] pairs packed as p | q << 8, and each CTA copies it
-// into shared memory once.  The TPU kernel's odd-even transposition with
-// fold-in swaps and its de-interleaved quadrant layout exist for the TPU's
-// vector unit and are not carried over.
+// schedule (jacobi_cuda.schedule_table), and each CTA turns it into tables
+// of byte offsets in shared memory once.  The TPU kernel's odd-even
+// transposition with fold-in swaps and its de-interleaved quadrant layout
+// exist for the TPU's vector unit and are not carried over.
 //
 // What bounds it on Hopper: one CTA owns one matrix in shared memory, and
 // the sweeps are a chain of up to 12*(m-1) dependent parallel steps.  The
 // arithmetic is ~2.4 MFLOP per 32x32 matrix, microseconds at the card's
 // f32 rate, so the kernel is bound by the latency of one step: one barrier
-// plus one 2x2 update, behind the (c, s) of its pair.  What the design does
-// about each part of that step:
+// plus one 2x2 update, behind the rotation of the step's pairs, whose five
+// IEEE divisions and square roots are one dependent chain.  What the
+// design does about each part of that step:
 //
 // * m is a template parameter (32, 48, 64: the sizes the dispatch envelope
-//   sends), so every index in the step loop is shifts and constants, with
-//   no division or modulo by a runtime value.  Pairs come from the shared
-//   schedule table, the next step's read while the current one runs.
-// * One barrier per parallel step.  The m/2 rotations of a step are
-//   disjoint, so J^T A J splits into independent 2x2 blocks: block (k, l)
-//   at rows (p_k, q_k) and columns (p_l, q_l) becomes J_k^T A_kl J_l.  Lane
-//   j < m/2 of every warp computes the rotation of pair j from the current
-//   A (the same IEEE sqrtf and / as `_rot_from`), and each thread takes the
-//   (c, s) of its blocks from those lanes by warp shuffles, so no phase of
-//   m/2 threads waits behind a barrier.  Every one of the (m/2)^2 blocks is
-//   computed, rows first and then columns, as the plain version does, so
-//   the two apply the same arithmetic.  A ping-pongs between two shared
-//   buffers, so reading step s never races writing step s+1; V is updated
-//   in place by (row, pair), since the pair columns of a step are disjoint.
-//   Each thread takes the same number of blocks and of V items, and the
-//   loops over them are unrolled.
+//   sends), so every index is shifts and constants, with no division or
+//   modulo by a runtime value in the step loop.  Each pair's rows and
+//   columns come as byte offsets from a shared table, an element's address
+//   being one add, and each step's entries are read during the step before.
+// * One block-wide barrier per parallel step.  The m/2 rotations of a step
+//   are disjoint, so J^T A J splits into independent 2x2 blocks: block
+//   (k, l) at rows (p_k, q_k) and columns (p_l, q_l) becomes J_k^T A_kl J_l.
+//   The bulk threads compute every one of the (m/2)^2 blocks, rows first and
+//   then columns, as the plain version does, and update V in place by
+//   (row, pair), since the pair columns of a step are disjoint.  A
+//   ping-pongs between two shared buffers, so reading step s never races
+//   writing step s+1.
+// * The rotations are off the bulk's path.  One extra warp, the rotation
+//   warp, holds the rotation of pair j in lane j.  During step s it
+//   computes the pivot a_p'q' of each pair of step s+1 from the 2x2 block
+//   of step s that holds it, exactly as the bulk thread of that block does,
+//   and the rotation of step s+1 from it, while the bulk threads apply step
+//   s's rotations, which they read from shared memory.  So no thread waits
+//   for a rotation after the barrier, and the rotations are computed once
+//   instead of once per warp.  The rotation warp's pivot loads go first: the
+//   bulk threads wait on a named barrier that it arrives at once they are
+//   in, so its loads do not queue behind theirs.
 // * An exact early exit.  A matrix stops at the end of the first sweep in
-//   which every rotation was the identity (__syncthreads_or of a per-thread
-//   flag as that sweep's last barrier).  Every later sweep would be exactly
-//   the identity (c = 1, s = 0, all off-diagonals already 0), so the result
-//   is that of running all sweeps.  The number of sweeps each matrix ran
-//   goes to `sweeps_run`.
-// * Rows are padded to m+1 floats, so the columns of V that a warp reads
-//   fall in distinct banks.  Three such buffers take 49,920 B at m=64, above
-//   the 48 KB of static shared memory, so shared memory is dynamic, with its
-//   limit raised once per instantiation.
+//   which every rotation was the identity (__syncthreads_or of a flag as
+//   that sweep's last barrier).  Every later sweep would be exactly the
+//   identity (c = 1, s = 0, all off-diagonals already 0), so the result is
+//   that of running all sweeps.  The number of sweeps each matrix ran goes
+//   to `sweeps_run`.
+// * IEEE sqrtf and / in the rotation, and no multiply-add contraction
+//   (the build passes --fmad=false): the kernel rounds every operation as
+//   the plain version does, and returns its results bit for bit.
+// * Rows are padded to m+1 floats.  A, V and the tables take 147,712 B at
+//   m=64, above the 48 KB of static shared memory, so shared memory is
+//   dynamic, with its limit raised once per instantiation.
 //
 // At the headline window batches (37 and 36 matrices) under a third of the
 // 132 SMs have work; packing several matrices per CTA or splitting one
@@ -61,7 +70,6 @@
 #include <cuda_runtime.h>
 
 #include <cstddef>
-#include <cstdint>
 
 namespace {
 
@@ -227,8 +235,6 @@ jacobi_kernel(const float* __restrict__ A, const int* __restrict__ schedule,
     int rotated = 0;
     for (int r = 0; r < STEPS; ++r) {
       const int next_r = r + 1 < STEPS ? r + 1 : 0;
-      // the table entries of the next step are read first: they do not
-      // depend on this step, and the barrier waits for their loads
       if (rot_warp) {
         // the next step's pivot of pair `own`, computed as the bulk threads
         // compute that element of A, then its rotation
@@ -337,7 +343,9 @@ int launch(const float* A, const int* schedule, float* evals, float* evecs,
 
 // A [batch, m, m] -> evals [batch, m] (unsorted diagonal), evecs [batch, m, m]
 // (row-major, eigenvectors in columns), sweeps_run [batch] (int32).
-// `schedule` is one sweep's round-robin pairs, [m-1, m/2] uint16 p | q << 8.
+// `schedule` is jacobi_cuda.schedule_table(m): [m-1, m/2] int32, pair j of
+// step r as p | q << 8, and the place of step r+1's pair j in step r's
+// blocks as Ahead::meta << 16.
 // All contiguous on the device; m is 32, 48 or 64.  Launches on `stream` and
 // returns cudaGetLastError() of the launch.
 extern "C" int vivit_jacobi_eigh_f32(const float* A, const int* schedule,
