@@ -167,7 +167,7 @@ def test_kernel_wrapper_rejects_what_it_cannot_take():
         batched_eigh_jacobi_plain(torch.zeros(1, 32, 32, dtype=torch.float64))
 
 
-@pytest.mark.parametrize("m", [2, 16, 34, 62])
+@pytest.mark.parametrize("m", [2, 16, 62])
 def test_kernel_wrapper_takes_only_the_compiled_sizes(m):
     """The plain version takes any even m <= 64; the kernel is compiled for
     the envelope's m only, and its wrapper says so before it looks at the

@@ -6,7 +6,8 @@ The leaf and window solver of the spectral D&C eigensolver
 the JAX package sends to its Pallas Jacobi kernel (the same envelope as
 ``jacobi_pallas.jacobi_supported``) to the hand-written Jacobi kernel, and
 everything else to ``torch.linalg.eigh``.  The envelope was measured on a
-TPU; measuring the H100's own is open work (ROADMAP).
+TPU; ``chip_smoke.py``'s shape sweep times both solvers over it on the
+H100, and choosing the H100's own envelope is open work (ROADMAP).
 """
 
 import torch

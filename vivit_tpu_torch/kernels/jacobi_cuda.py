@@ -21,6 +21,10 @@ identity (``|a_pq| <= 1e-30``): every later sweep would leave it exactly as
 it is, so the result is that of :data:`SWEEPS` sweeps.  The kernel always
 exits so; the plain version does when asked (``exit_early``).
 
+Kernel and plain version apply the same operations in the same order and
+rounding, so on the card they agree to the bit on the inputs that
+``chip_smoke.py`` checks.
+
 The kernel is built with ``nvcc`` for ``sm_90a`` at its first CUDA call, into
 ``vivit_tpu_torch/_build/``, and loaded with ``ctypes``.
 """
@@ -44,6 +48,13 @@ _SOURCE = os.path.join(_PKG_DIR, "csrc", "jacobi.cu")
 _BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 _LIB = None
 _SCHEDULES = {}  # (m, device) -> the schedule table on that device
+_NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    # no multiply-add contraction: the kernel rounds every product and sum
+    # as its plain version does
+    "--fmad=false",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
 
 
 def _rot_from(app, aqq, apq):
@@ -167,24 +178,20 @@ def batched_eigh_jacobi_plain(A: torch.Tensor, exit_early: bool = False,
 
 
 def build():
-    """Compile ``csrc/jacobi.cu`` for ``sm_90a`` (once per source version)
-    and return ``(library path, seconds, compiler output)``."""
+    """Compile ``csrc/jacobi.cu`` for ``sm_90a`` (once per version of the
+    source and flags) and return ``(library path, seconds, compiler output)``."""
     import subprocess
 
     with open(_SOURCE, "rb") as fh:
-        digest = hashlib.sha256(fh.read()).hexdigest()[:12]
-    lib_path = os.path.join(_BUILD_DIR, f"libjacobi_{digest}.so")
+        digest = hashlib.sha256(fh.read() + " ".join(_NVCC_FLAGS).encode())
+    lib_path = os.path.join(_BUILD_DIR, f"libjacobi_{digest.hexdigest()[:12]}.so")
     if os.path.exists(lib_path):
         return lib_path, 0.0, ""
     os.makedirs(_BUILD_DIR, exist_ok=True)
     cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
     nvcc = os.path.join(cuda_home, "bin", "nvcc")
     tmp = f"{lib_path}.{os.getpid()}.tmp"
-    # --fmad=false: no multiply-add contraction, so the kernel rounds every
-    # product and sum as its plain version does
-    cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-           "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-           "-o", tmp, _SOURCE]
+    cmd = [nvcc, *_NVCC_FLAGS, "-o", tmp, _SOURCE]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     seconds = time.perf_counter() - t0
