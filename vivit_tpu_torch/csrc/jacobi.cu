@@ -61,7 +61,7 @@
 //   the plain version does, and returns its results bit for bit.
 // * Rows are padded to m+1 floats.  A, V and the tables take 147,712 B at
 //   m=64, above the 48 KB of static shared memory, so shared memory is
-//   dynamic, with its limit raised once per instantiation.
+//   dynamic, with its limit raised before each launch.
 //
 // At the headline window batches (37 and 36 matrices) under a third of the
 // 132 SMs have work; packing several matrices per CTA or splitting one
@@ -330,7 +330,9 @@ template <int M>
 int launch(const float* A, const int* schedule, float* evals, float* evecs,
            int* sweeps_run, int batch, int max_sweeps, cudaStream_t stream) {
   constexpr size_t bytes = shared_bytes<M>();
-  static const cudaError_t configured = cudaFuncSetAttribute(
+  // the limit belongs to the current device's context, so it is raised at
+  // every launch rather than once per process
+  const cudaError_t configured = cudaFuncSetAttribute(
       jacobi_kernel<M>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(bytes));
   if (configured != cudaSuccess) return static_cast<int>(configured);
