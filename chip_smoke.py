@@ -25,7 +25,26 @@ Phases, each printed as it runs:
    runs the two window batches of that solve again through the kernel and
    its plain version (equal sweeps) and times them beside
    ``torch.linalg.eigh``; times the step and its three stages.
-4. A JSON line of the kernels, then ``{"ok": true, "device": ...}`` last.
+4. **N=128 eigenpairs**: ``eigh_topk(k=10, solver="dc")`` with the same
+   settings (the bf16 Gram, deflated at the Gram level to 1152², the dc
+   solver's chain path in eigenvector mode): 6 Jacobi launches, the guard,
+   the top-10 eigenvalues, Gram-space residuals, the full 1152 basis and the
+   back-projected parameter-space vectors against float64; the six window
+   batches through the kernel and its plain version, timed beside
+   ``torch.linalg.eigh``; then ``refine_eigh`` on the same Gram, warm-started
+   from the dc basis (2 launches).
+5. **N=512 spectrum**: ``eigvalsh_structured`` with the headline settings at
+   N=512 (4608², the strip path): 0 Jacobi launches (its w=64 windows are
+   outside the kernel's envelope), the guard, 0/4608 float64 violations, 512
+   structural zeros.
+6. **N=512 eigenpairs**: ``eigh_topk`` at N=512 (the strip path in
+   eigenvector mode), the checks of phase 4.
+7. **Times**: each new entry's call (median of 3 after a warm-up, host
+   clock around a synchronised call) and its stages on CUDA events; one
+   profiled N=512 eigenpair call; ``torch.linalg.eigh`` on each batch shape
+   the N=512 eigenpair solve hands ``batched_eigh``.
+8. The launches of each path, a JSON line of the kernels, then
+   ``{"ok": true, "device": ...}`` last.
 
 Any failed check exits non-zero.  Without a CUDA device it exits 2 and
 prints no result.
@@ -35,6 +54,7 @@ import json
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 
@@ -47,6 +67,14 @@ SWEEP_SHAPES = [(b, m) for m in (32, 48, 64) for b in (1, 8, 37, 64) if b * m <=
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 RTOL, ATOL = 1e-4, 5e-6
+N_LARGE = 512
+TOP_K = 10
+# eigenpair bars (BASELINE.md): G e = λ e; parameter-space orthonormality;
+# sign-invariant match of the vectors
+RES_RTOL, RES_ATOL = 5e-4, 1e-5
+ORTH_RTOL, ORTH_ATOL = 1e-3, 2e-4
+VEC_RTOL, VEC_ATOL = 2e-2, 2e-3
+HEADLINE = dict(precision="highest", gram_precision="bf16", deflate_ce_null=True)
 
 
 class SmokeFailure(Exception):
@@ -347,6 +375,403 @@ def profile_step(step, top=12):
               f"{e.key[:100]}", flush=True)
 
 
+def port_model():
+    """Full-width 3c3d with ``cnn3c3d_flax_params(seed=0)`` on the card."""
+    import vivit_tpu_torch as vtt
+    from vivit_tpu_torch.convert import params_from_flax
+    from vivit_tpu_torch.models import cnn3c3d_flax_params
+
+    model = vtt.CNN3c3d(NUM_CLASSES)
+    model.load_state_dict(params_from_flax(cnn3c3d_flax_params(seed=0)))
+    return model.to("cuda").eval()
+
+
+def port_batch(n):
+    import torch
+
+    rng = np.random.default_rng(0)
+    X = rng.normal(size=(n, 32, 32, 3)).astype(np.float32)
+    y = rng.integers(0, NUM_CLASSES, size=(n,)).astype(np.int32)
+    return torch.tensor(X, device="cuda"), torch.tensor(y, device="cuda")
+
+
+def untripped(fn, label):
+    """``fn()``, failing if an eigdc guard tripped inside it (the guard's
+    warning is its only trace in an entry point's result)."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        out = fn()
+    trips = [str(w.message) for w in caught if "guard tripped" in str(w.message)]
+    check(not trips, f"{label}: {trips}")
+    return out
+
+
+def launches_of(jc, fn):
+    """``(fn(), Jacobi launches during it)``, the count set to 0 just before."""
+    import torch
+
+    torch.cuda.synchronize()
+    jc.LAUNCHES = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, jc.LAUNCHES
+
+
+def recording_eigh(fn):
+    """``(fn(), batches)``: every batch ``batched_eigh`` receives inside
+    ``fn``, cloned, in call order."""
+    from vivit_tpu_torch import eigdc
+
+    batches = []
+    solve = eigdc.batched_eigh
+
+    def recording(A):
+        batches.append(A.clone())
+        return solve(A)
+
+    eigdc.batched_eigh = recording
+    try:
+        out = fn()
+    finally:
+        eigdc.batched_eigh = solve
+    return out, batches
+
+
+def host_ms(fn, reps=3):
+    """Median host-clock time of a synchronised call of ``fn``, after a
+    warm-up."""
+    import torch
+
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def stage_ms(stages, reps=3):
+    """Median CUDA-event time of each stage over ``reps`` runs after a
+    warm-up: ``stages`` is a list of ``(name, fn)``, each ``fn`` taking the
+    previous stage's output."""
+    import torch
+
+    from vivit_tpu_torch.precision import full_f32
+
+    runs = []
+    for i in range(reps + 1):
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(len(stages) + 1)]
+        torch.cuda.synchronize()
+        out = None
+        with full_f32():
+            events[0].record()
+            for k, (_, fn) in enumerate(stages):
+                out = fn(out)
+                events[k + 1].record()
+        torch.cuda.synchronize()
+        if i:
+            runs.append([events[k].elapsed_time(events[k + 1])
+                         for k in range(len(stages))])
+    med = np.median(np.asarray(runs), axis=0)
+    return ", ".join(f"{name} {t:.3f} ms" for (name, _), t in zip(stages, med))
+
+
+def deflated_gram(model, loss, X, y):
+    """The raw bf16 Gram's Vᵀ, the CE complement and the Gram-level deflated
+    Gram, built as ``eigh_topk`` builds them."""
+    from vivit_tpu_torch import deflate
+    from vivit_tpu_torch.precision import _PRECISIONS, full_f32
+    from vivit_tpu_torch.structured import gram_matrix_mixed
+    from vivit_tpu_torch.tapped import tapped_ggn_sqrt_vt
+
+    with full_f32():
+        vt = tapped_ggn_sqrt_vt(model, loss, X, y)
+        gram = gram_matrix_mixed(vt, generic_precision=_PRECISIONS["bf16"])
+        w = deflate.ce_null_complement(deflate.ce_probs(model, X))
+        return vt, w, deflate.deflate_gram(gram, w)
+
+
+def stacked(leaves):
+    import torch
+
+    return torch.cat([leaf.reshape(leaf.shape[0], -1) for leaf in leaves], dim=1).double()
+
+
+def check_eigenpairs(label, evals, leaves, paths, vt, w, gram_d, ev_d, V_d):
+    """The eigenpair bars on one path: the entry's top-k eigenvalues against
+    float64; the dc solve of the same deflated Gram (``ev_d``, ``V_d``):
+    Gram-space residuals, the full basis; the entry's parameter-space vectors:
+    unit norm, orthonormality, and float64 eigenvectors sent through the same
+    lift and back-projection, up to sign."""
+    import torch
+
+    from vivit_tpu_torch.deflate import lift_gram_vecs
+    from vivit_tpu_torch.linalg.eigh import backproject
+    from vivit_tpu_torch.precision import full_f32
+
+    n, k = gram_d.shape[0], TOP_K
+    G = gram_d.double()
+    ref_ev, ref_V = torch.linalg.eigh(G)
+    lmax = ref_ev.abs().max()
+    err = (evals.double() - ref_ev[-k:]).abs()
+    tol = ATOL * lmax + RTOL * ref_ev[-k:].abs()
+    ratio = (err / tol).max().item()
+    check(ratio <= 1.0, f"{label}: top-{k} eigenvalues off float64 (max err/tol {ratio:.2f})")
+
+    E, lam = V_d[:, -k:].double(), ev_d[-k:].double()
+    res = torch.linalg.vector_norm(G @ E - E * lam, dim=0)
+    res_ratio = (res / (RES_RTOL * lam.abs() + RES_ATOL * lmax)).max().item()
+    check(res_ratio <= 1.0, f"{label}: Gram-space residual {res_ratio:.2f} of its bar")
+    V = V_d.double()
+    eye = torch.eye(n, dtype=torch.float64, device=V.device)
+    orth = (torch.linalg.matrix_norm(V.T @ V - eye) / n ** 0.5).item()
+    defect = (torch.linalg.matrix_norm(G @ V - V * ev_d.double())
+              / torch.linalg.matrix_norm(G)).item()
+    check(orth < 1e-4, f"{label}: basis orthonormality {orth:.2e}")
+    check(defect < 5e-4, f"{label}: basis defect {defect:.2e}")
+
+    P = stacked(leaves)
+    norm_err = (P.norm(dim=1) - 1.0).abs().max().item()
+    C = P @ P.T
+    off = (C - torch.diag(torch.diagonal(C))).abs().max().item()
+    check(norm_err <= 1e-5, f"{label}: parameter-space norms off 1 by {norm_err:.2e}")
+    check(off <= ORTH_ATOL + ORTH_RTOL, f"{label}: |v_i^T v_j| up to {off:.2e}")
+    with full_f32():
+        ref_leaves = backproject(vt, lift_gram_vecs(ref_V[:, -k:].float(), w), None,
+                                 paths)
+    R = stacked(ref_leaves)
+    sign = torch.sign((P * R).sum(dim=1, keepdim=True))
+    vec_ratio = ((P * sign - R).abs() / (VEC_ATOL + VEC_RTOL * R.abs())).max().item()
+    check(vec_ratio <= 1.0, f"{label}: vectors off float64 ({vec_ratio:.2f} of the bar)")
+    print(f"{label}: top-{k} eigenvalues vs float64 max err/tol {ratio:.3f}; Gram-space "
+          f"residual {res_ratio:.3f} of 5e-4|λ|+1e-5λmax; full {n} basis "
+          f"‖QᵀQ−I‖_F/√n {orth:.2e}, ‖GQ−QΛ‖_F/‖G‖_F {defect:.2e}; parameter space: "
+          f"|‖v‖−1| {norm_err:.2e}, max|vᵢᵀvⱼ| {off:.2e}, vs float64 vectors "
+          f"{vec_ratio:.3f} of rtol 2e-2/atol 2e-3", flush=True)
+
+
+def phase_eigenpairs(jc, model, n, expect_launches):
+    """``eigh_topk`` on one path, with its checks; returns ``(model inputs,
+    launches, the dc solve of the deflated Gram, the batches it handed
+    batched_eigh)``."""
+    import torch
+
+    import vivit_tpu_torch as vtt
+    from vivit_tpu_torch import eigdc
+    from vivit_tpu_torch.precision import full_f32
+
+    X, y = port_batch(n)
+    loss = vtt.CrossEntropyLoss("mean")
+    label = f"eigh_topk N={n}"
+
+    def entry():
+        return vtt.eigh_topk(model, loss, X, y, TOP_K, solver="dc", **HEADLINE)
+
+    untripped(entry, label)  # warm-up
+    (evals, leaves), launches = launches_of(jc, lambda: untripped(entry, label))
+    vt, w, gram_d = deflated_gram(model, loss, X, y)
+    with full_f32():
+        (ev_d, V_d, info), batches = recording_eigh(
+            lambda: eigdc.eigh_dc(gram_d, return_info=True))
+    torch.cuda.synchronize()
+    print(f"{label}: deflated Gram {tuple(gram_d.shape)}, Jacobi launches {launches}, "
+          f"guard tripped {bool(info['tripped'])} (bound {float(info['bound']):.2e}, "
+          f"orth {float(info['orth']):.2e}), top-{TOP_K} "
+          f"{[round(v, 6) for v in evals.tolist()]}", flush=True)
+    check(launches == expect_launches,
+          f"{label}: expected {expect_launches} Jacobi launches, got {launches}")
+    check(not bool(info["tripped"]), f"{label}: the eigdc guard tripped")
+    check(evals.shape == (TOP_K,) and bool(torch.isfinite(evals).all()),
+          f"{label}: eigenvalues {evals}")
+    paths = [name for name, _ in model.named_parameters()]
+    check_eigenpairs(label, evals, leaves, paths, vt, w, gram_d, ev_d, V_d)
+    return (X, y, loss), launches, (gram_d, ev_d, V_d), batches
+
+
+def time_windows(jc, batches, label):
+    """The Jacobi kernel on the window batches of a solve: against its plain
+    version (equal sweeps), its time beside ``torch.linalg.eigh`` and its
+    bound; returns the totals ``(kernel, eigh, bound, plain)`` ms."""
+    import torch
+
+    from vivit_tpu_torch.kernels.jacobi import jacobi_supported
+
+    totals = np.zeros(4)
+    for A in (A for A in batches if jacobi_supported(A.shape, A.dtype)):
+        b, m, _ = A.shape
+        ev, V, sw = jc.batched_eigh_jacobi_cuda(A, return_sweeps=True)
+        ev_p, V_p, sw_p = jc.batched_eigh_jacobi_plain(A, exit_early=True,
+                                                       return_sweeps=True)
+        torch.cuda.synchronize()
+        check(torch.equal(sw, sw_p), f"{label} window [{b},{m},{m}]: sweeps differ")
+        gap = max((ev - ev_p).abs().max().item(), (V - V_p).abs().max().item())
+        check(gap <= 1e-5 * A.abs().max().item(),
+              f"{label} window [{b},{m},{m}]: kernel and plain differ by {gap:.2e}")
+        t_k = cuda_ms(lambda: jc.batched_eigh_jacobi_cuda(A), reps=30, calls=10)
+        t_l = cuda_ms(lambda: torch.linalg.eigh(A), reps=30, calls=10)
+        t_p = cuda_ms(lambda: jc.batched_eigh_jacobi_plain(A, exit_early=True),
+                      reps=1, warmup=0)
+        bound, by = jc.bound_ms(b, m, int(sw.sum()), PEAK_F32_FLOPS, PEAK_BYTES)
+        totals += (t_k, t_l, bound, t_p)
+        print(f"{label} window [{b},{m},{m}]: sweeps run {int(sw.min())}-{int(sw.max())}, "
+              f"max|kernel-plain| {gap:.3e}, kernel {t_k:.4f} ms, torch.linalg.eigh "
+              f"{t_l:.4f} ms (10 calls back to back), plain {t_p:.3f} ms, bound "
+              f"{bound:.6f} ms ({by})", flush=True)
+    return totals
+
+
+def phase_refine(jc, gram_d, V_d):
+    """``refine_eigh`` on the N=128 deflated Gram, warm-started from the dc
+    basis; returns its launches."""
+    import torch
+
+    from vivit_tpu_torch.eigdc import refine_eigh
+
+    (ev, Q, res), launches = launches_of(jc, lambda: refine_eigh(gram_d, V_d))
+    ref = torch.linalg.eigvalsh(gram_d.double())
+    err = (ev.double() - ref).abs()
+    tol = ATOL * ref.abs().max() + RTOL * ref.abs()
+    ratio = (err / tol).max().item()
+    t = cuda_ms(lambda: refine_eigh(gram_d, V_d), reps=5)
+    print(f"refine_eigh {tuple(gram_d.shape)} from the dc basis: Jacobi launches "
+          f"{launches}, residual {float(res):.2e}, eigenvalues vs float64 max err/tol "
+          f"{ratio:.3f}, {t:.3f} ms (CUDA events, median of 5)", flush=True)
+    check(launches == 2, f"refine_eigh: expected 2 Jacobi launches, got {launches}")
+    check(float(res) < 1e-4, f"refine_eigh: residual {float(res):.2e}")
+    check(ratio <= 1.0, f"refine_eigh: eigenvalues off float64 (max err/tol {ratio:.2f})")
+    return launches
+
+
+def phase_spectrum_large(jc, model):
+    """``eigvalsh_structured`` at N=512 (the strip path); returns its
+    launches and inputs."""
+    import torch
+
+    import vivit_tpu_torch as vtt
+    from vivit_tpu_torch import eigdc
+    from vivit_tpu_torch.precision import _PRECISIONS, full_f32
+    from vivit_tpu_torch.structured import gram_matrix_mixed
+    from vivit_tpu_torch.tapped import tapped_ggn_sqrt_vt
+
+    n = N_LARGE
+    X, y = port_batch(n)
+    loss = vtt.CrossEntropyLoss("mean")
+    label = f"eigvalsh_structured N={n}"
+
+    def entry():
+        return vtt.eigvalsh_structured(model, loss, X, y, eig_backend="dc",
+                                       return_eig_info=True, **HEADLINE)
+
+    entry()  # warm-up
+    ((evals,), (info,)), launches = launches_of(jc, entry)
+    n_zero = int((evals == 0).sum())
+    print(f"{label}: {evals.numel()} eigenvalues, {n_zero} exact zeros, Jacobi launches "
+          f"{launches}, guard tripped {bool(info['tripped'])} (bound "
+          f"{float(info['bound']):.2e}, orth {float(info['orth']):.2e})", flush=True)
+    check(launches == 0, f"{label}: expected 0 Jacobi launches, got {launches}")
+    check(not bool(info["tripped"]), f"{label}: the eigdc guard tripped")
+    check(evals.numel() == n * NUM_CLASSES, f"{label}: {evals.numel()} eigenvalues")
+    check(bool(torch.isfinite(evals).all()), f"{label}: non-finite eigenvalues")
+    check(n_zero == n, f"{label}: {n_zero} exact zeros, expected {n}")
+
+    with full_f32():
+        vt = tapped_ggn_sqrt_vt(model, loss, X, y, deflate_ce_null=True)
+        gram = gram_matrix_mixed(vt, generic_precision=_PRECISIONS["bf16"])
+        ev_dc, info_dc = eigdc.eigvalsh_dc(gram, return_info=True)
+    ref = torch.linalg.eigvalsh(gram.double())
+    for name, got, want in (
+            (f"deflated Gram {tuple(gram.shape)} dc", ev_dc, ref),
+            (f"{label} {evals.numel()} eigenvalues",
+             evals, torch.sort(torch.cat([ref.new_zeros(n), ref])).values)):
+        err = (got.double() - want).abs()
+        tol = ATOL * want.abs().max() + RTOL * want.abs()
+        ratio = (err / tol).max().item()
+        bad = int((err > tol).sum())
+        print(f"{name} vs float64: max err/tol {ratio:.3f}, {bad}/{want.numel()} "
+              "violations", flush=True)
+        check(bad == 0, f"{name}: {bad} violations of float64")
+    check(not bool(info_dc["tripped"]), f"deflated Gram {tuple(gram.shape)}: guard tripped")
+    return launches, (X, y, loss)
+
+
+def phase_times(jc, model, inputs_small, inputs_large, spectrum_inputs):
+    """Times of the new entries and their stages, one profiled N=512
+    eigenpair call, and ``torch.linalg.eigh`` on the N=512 eigenpair solve's
+    batch shapes."""
+    import torch
+
+    import vivit_tpu_torch as vtt
+    from vivit_tpu_torch import deflate, eigdc
+    from vivit_tpu_torch.linalg.eigh import backproject
+    from vivit_tpu_torch.precision import _PRECISIONS
+    from vivit_tpu_torch.structured import gram_matrix_mixed
+    from vivit_tpu_torch.tapped import tapped_ggn_sqrt_vt
+
+    paths = [name for name, _ in model.named_parameters()]
+    for X, y, loss in (inputs_small, inputs_large):
+        n = X.shape[0]
+
+        def entry():
+            return vtt.eigh_topk(model, loss, X, y, TOP_K, solver="dc", **HEADLINE)
+
+        def gram_stage(vt):
+            gram = gram_matrix_mixed(vt, generic_precision=_PRECISIONS["bf16"])
+            w = deflate.ce_null_complement(deflate.ce_probs(model, X))
+            return vt, w, deflate.deflate_gram(gram, w)
+
+        def solve_stage(state):
+            vt, w, gram_d = state
+            return vt, w, eigdc.eigh_dc(gram_d)[1][:, -TOP_K:]
+
+        def backproject_stage(state):
+            vt, w, vecs = state
+            return backproject(vt, deflate.lift_gram_vecs(vecs, w), None, paths)
+
+        stages = stage_ms([
+            ("V-transform", lambda _: tapped_ggn_sqrt_vt(model, loss, X, y)),
+            ("Gram (raw, deflated at the Gram level)", gram_stage),
+            ("eigensolve", solve_stage),
+            ("lift and back-projection", backproject_stage)])
+        print(f"eigh_topk N={n}: {host_ms(entry):.3f} ms median of 3 (host clock); "
+              f"stages (CUDA events, median of 3): {stages}", flush=True)
+
+    X, y, loss = spectrum_inputs
+    n = X.shape[0]
+
+    def spectrum():
+        return vtt.eigvalsh_structured(model, loss, X, y, eig_backend="dc", **HEADLINE)
+
+    stages = stage_ms([
+        ("V-transform", lambda _: tapped_ggn_sqrt_vt(model, loss, X, y,
+                                                     deflate_ce_null=True)),
+        ("Gram", lambda vt: gram_matrix_mixed(vt, generic_precision=_PRECISIONS["bf16"])),
+        ("eigensolve", lambda gram: torch.sort(torch.cat([
+            gram.new_zeros(n), eigdc.eigvalsh_dc(gram)])))])
+    print(f"eigvalsh_structured N={n}: {host_ms(spectrum):.3f} ms median of 3 (host "
+          f"clock); stages (CUDA events, median of 3): {stages}", flush=True)
+
+    X, y, loss = inputs_large
+
+    def eigenpairs():
+        return vtt.eigh_topk(model, loss, X, y, TOP_K, solver="dc", **HEADLINE)
+
+    print(f"profiled call: eigh_topk N={X.shape[0]}", flush=True)
+    profile_step(eigenpairs)
+    _, batches = recording_eigh(eigenpairs)
+    shapes = {}
+    for A in batches:
+        shapes.setdefault(tuple(A.shape), A)
+    counts = {s: sum(tuple(A.shape) == s for A in batches) for s in shapes}
+    for shape, A in shapes.items():
+        t = cuda_ms(lambda: torch.linalg.eigh(A), reps=5, warmup=1)
+        print(f"eigh_topk N={X.shape[0]} batched_eigh {list(shape)} x{counts[shape]} per "
+              f"solve: torch.linalg.eigh {t:.3f} ms (CUDA events, median of 5)",
+              flush=True)
+
+
 def main():
     import torch
 
@@ -371,9 +796,26 @@ def main():
         max_err, timing = phase_kernel(jc)
         phase_shape_sweep(jc)
         launches = phase_main_path(jc)
+        model = port_model()
+        small, evecs_launches, (gram_d, _, V_d), batches = phase_eigenpairs(jc, model, N, 6)
+        win = time_windows(jc, batches, f"eigh_topk N={N}")
+        print(f"eigh_topk N={N}, the {evecs_launches} window launches of one solve: kernel "
+              f"{win[0]:.4f} ms, torch.linalg.eigh {win[1]:.4f} ms, bound {win[2]:.6f} ms, "
+              f"plain {win[3]:.3f} ms", flush=True)
+        refine_launches = phase_refine(jc, gram_d, V_d)
+        spectrum_launches, spectrum = phase_spectrum_large(jc, model)
+        large, large_launches, _, _ = phase_eigenpairs(jc, model, N_LARGE, 0)
+        phase_times(jc, model, small, large, spectrum)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAIL: {exc}", file=sys.stderr)
         return 1
+
+    print("Jacobi launches per path: " + json.dumps({
+        f"eigvalsh_structured N={N}": launches,
+        f"eigh_topk N={N}": evecs_launches,
+        f"refine_eigh N={N}": refine_launches,
+        f"eigvalsh_structured N={N_LARGE}": spectrum_launches,
+        f"eigh_topk N={N_LARGE}": large_launches}), flush=True)
 
     t = [timing[s] for s in HEADLINE_SHAPES]
     kernels = [{

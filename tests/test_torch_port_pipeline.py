@@ -298,7 +298,8 @@ def test_no_device_without_cuda_raises(models):
 
 def test_import_leaves_jax_out():
     code = ("import sys, vivit_tpu_torch, vivit_tpu_torch.eigdc, "
-            "vivit_tpu_torch.convert\n"
+            "vivit_tpu_torch.convert, vivit_tpu_torch.linalg.eigh, "
+            "vivit_tpu_torch.deflate, vivit_tpu_torch.gram\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
             " or m == 'flax' or m == 'vivit_tpu' or m.startswith('vivit_tpu.')]\n"
             "assert not bad, bad\n")

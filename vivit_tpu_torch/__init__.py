@@ -4,23 +4,28 @@ Low-rank GGN curvature access on an NVIDIA H100.  Module names mirror the
 JAX package's, so each counterpart is easy to find; the JAX package stays the
 reference and this package imports none of it.
 
-This slice ports the GGN eigenvalue path of CIFAR-10 3c3d end to end:
+The port so far covers the GGN spectrum and top eigenpairs of CIFAR-10
+3c3d end to end:
 
 * :func:`~vivit_tpu_torch.structured.eigvalsh_structured`: tapped
   V-transform (:mod:`~vivit_tpu_torch.tapped`), exact CE loss factors with
   null-space deflation (:mod:`~vivit_tpu_torch.ggn`,
   :mod:`~vivit_tpu_torch.deflate`), the mixed Gram, and the eigensolver
   (:func:`~vivit_tpu_torch.eig.full_eigh`);
-* :func:`~vivit_tpu_torch.eigdc.eigvalsh_dc`: the spectral
-  divide-and-conquer eigensolver (chain path, eigenvalues mode), whose
-  window solves run the hand-written Hopper Jacobi kernel
+* :func:`~vivit_tpu_torch.linalg.eigh.eigh_topk`: top-k eigenpairs with
+  Gram-level CE deflation and back-projection to parameter space;
+* :func:`~vivit_tpu_torch.eigdc.eigh_dc`: the spectral divide-and-conquer
+  eigensolver (chain and strip paths, both modes) and
+  :func:`~vivit_tpu_torch.eigdc.refine_eigh`, whose window solves run the
+  hand-written Hopper Jacobi kernel
   (:mod:`~vivit_tpu_torch.kernels.jacobi_cuda`, ``csrc/jacobi.cu``).
 
 Entry points run on the CUDA card unless the caller passes ``device="cpu"``.
 """
 
-from vivit_tpu_torch.eig import full_eigh
-from vivit_tpu_torch.eigdc import eigh_dc, eigvalsh_dc
+from vivit_tpu_torch.eig import full_eigh, topk_eigh
+from vivit_tpu_torch.eigdc import eigh_dc, eigvalsh_dc, refine_eigh
+from vivit_tpu_torch.linalg.eigh import eigh_topk
 from vivit_tpu_torch.losses import CrossEntropyLoss, Loss
 from vivit_tpu_torch.models import CNN3c3d
 from vivit_tpu_torch.structured import eigvalsh_structured
@@ -32,7 +37,10 @@ __all__ = [
     "CrossEntropyLoss",
     "Loss",
     "eigh_dc",
+    "eigh_topk",
     "eigvalsh_dc",
     "eigvalsh_structured",
     "full_eigh",
+    "refine_eigh",
+    "topk_eigh",
 ]

@@ -1,14 +1,25 @@
 """Analytic null-space deflation of the cross-entropy GGN (counterpart of
-``vivit_tpu/deflate.py``; the factor-level pieces only in this slice).
+``vivit_tpu/deflate.py``; ``deflated_eigh`` and ``deflated_eigvalsh`` are
+not ported yet).
 
 For exact CE factors ``s_{n,c} = √p_c (e_c − p)`` each sample's factor rows
 satisfy ``Σ_c √p_{n,c} s_{n,c} = 0``, so the ``[CS, CS]`` Gram carries ``S``
-structural zero eigenvalues.  Projecting the factor rows onto the orthogonal
-complement of ``√p_n`` before the backward shrinks the Gram to
-``[(C−1)S, (C−1)S]`` exactly.
+structural zero eigenvalues with known eigenvectors.  Two places use it:
+
+* factor level (:func:`vivit_tpu_torch.ggn.v_factors`): the factor rows are
+  projected onto the complement of ``√p_n`` before the backward, so the
+  Gram is ``[(C−1)S, (C−1)S]`` from the start (eigenvalues only);
+* Gram level (:func:`deflate_gram`, :func:`deflated_topk_eigh`): the full
+  Gram is projected, and eigenvectors are lifted back
+  (:func:`lift_gram_vecs`) to the full Gram's, for back-projection.
+
+Gram matrices use the flat index ``c·S + n``.  The projections run in full
+f32.
 """
 
 import torch
+
+from vivit_tpu_torch.precision import full_f32
 
 
 def ce_null_complement(probs: torch.Tensor) -> torch.Tensor:
@@ -27,6 +38,62 @@ def ce_null_complement(probs: torch.Tensor) -> torch.Tensor:
     eye = torch.eye(c, dtype=u.dtype, device=u.device)
     h = eye[None] - beta[:, None, None] * (v[:, :, None] * v[:, None, :])
     return h[:, :, 1:]
+
+
+def deflate_gram(gram: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Project a ``[CS, CS]`` Gram onto the CE null complement ``w [S, C,
+    C−1]`` (:func:`ce_null_complement`): the ``[(C−1)S, (C−1)S]`` deflated
+    Gram, factor index major."""
+    s, c = w.shape[0], w.shape[1]
+    with full_f32():
+        g4 = torch.einsum("cndm,nca->andm", gram.reshape(c, s, c, s), w)
+        g4 = torch.einsum("andm,mdb->anbm", g4, w)
+    return g4.reshape((c - 1) * s, (c - 1) * s)
+
+
+def ce_null_vectors(probs: torch.Tensor) -> torch.Tensor:
+    """The ``S`` analytic null eigenvectors ``[CS, S]``: column ``n`` is the
+    unit vector ``√p_n`` on sample ``n``'s rows ``c·S + n``."""
+    s, c = probs.shape
+    u = probs.sqrt()
+    eye = torch.eye(s, dtype=u.dtype, device=u.device)
+    return (u.T[:, None, :] * eye[None]).reshape(c * s, s)
+
+
+def lift_gram_vecs(vecs_d: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Lift deflated Gram eigenvectors ``[(C−1)S, K]`` back to ``[CS, K]``:
+    the full Gram's eigenvectors of the same (nonzero) eigenvalues."""
+    s, c = w.shape[0], w.shape[1]
+    with full_f32():
+        lifted = torch.einsum("nca,ank->cnk", w, vecs_d.reshape(c - 1, s, -1))
+    return lifted.reshape(c * s, -1)
+
+
+def deflated_topk_eigh(gram: torch.Tensor, probs: torch.Tensor, k: int, *,
+                       solver: str = "eigh"):
+    """Top-``k`` eigenpairs of a CE Gram through exact null deflation:
+    ``(evals [k] ascending, evecs [CS, k])``.
+
+    The ``S`` structural zeros are the bottom of the PSD spectrum, so for
+    ``k ≤ (C−1)·S`` the deflated Gram's top-``k`` is the full top-``k``.
+    """
+    from vivit_tpu_torch.eig import topk_eigh
+
+    s, c = probs.shape
+    if k > (c - 1) * s:
+        raise ValueError(
+            f"deflated top-k needs k <= (C-1)*S = {(c - 1) * s} (got {k}): "
+            "beyond that the top-k reaches the structural null space."
+        )
+    w = ce_null_complement(probs)
+    evals, evecs_d = topk_eigh(deflate_gram(gram, w), k, solver=solver)
+    return evals, lift_gram_vecs(evecs_d, w)
+
+
+def ce_probs(module, X: torch.Tensor) -> torch.Tensor:
+    """Softmax probabilities of the model outputs (deflation input)."""
+    with torch.no_grad():
+        return torch.softmax(module(X), dim=-1)
 
 
 def check_deflatable(loss) -> None:

@@ -1,5 +1,5 @@
-"""Full-spectrum symmetric eigensolver dispatch (counterpart of
-``vivit_tpu/eig.py``; ``full_eigh`` only in this slice)."""
+"""Symmetric eigensolver dispatch (counterpart of ``vivit_tpu/eig.py``;
+``full_eigh`` and ``topk_eigh`` in this slice)."""
 
 import torch
 
@@ -39,3 +39,30 @@ def full_eigh(
     if return_info:
         return evals, evecs, no_trip_info(gram.device)
     return evals, evecs
+
+
+def topk_eigh(gram: torch.Tensor, k: int, solver: str = "eigh",
+              return_info: bool = False):
+    """Top-``k`` eigenpairs of a PSD Gram: ``(evals [k] ascending,
+    evecs [dim, k][, info])``.
+
+    ``solver="eigh"`` slices ``torch.linalg.eigh``; ``solver="dc"`` slices
+    the spectral divide-and-conquer decomposition, and ``info`` is its guard
+    info (all zeros otherwise).  ``"lobpcg"`` is not ported yet.
+    """
+    if solver == "eigh":
+        evals, evecs = torch.linalg.eigh(gram)
+        info = no_trip_info(gram.device)
+    elif solver == "dc":
+        from vivit_tpu_torch.eigdc import eigh_dc
+
+        evals, evecs, info = eigh_dc(gram, return_info=True)
+    elif solver == "lobpcg":
+        raise NotImplementedError(
+            "topk_eigh(solver='lobpcg') is not ported yet (ROADMAP queue 1 "
+            "item 3); use solver='eigh' or 'dc'."
+        )
+    else:
+        raise ValueError(f"Unknown solver {solver!r} (use 'eigh', 'lobpcg' or 'dc').")
+    out = (evals[-k:], evecs[:, -k:])
+    return (*out, info) if return_info else out

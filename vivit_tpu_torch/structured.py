@@ -1,5 +1,6 @@
-"""Structure-exploiting GGN eigenvalues (counterpart of
-``vivit_tpu/structured.py``; the eigenvalue pipeline only in this slice).
+"""Structure-exploiting GGN algebra (counterpart of
+``vivit_tpu/structured.py``; the eigenvalue pipeline and back-projection in
+this slice).
 
 For a Linear weight the ``Vᵀ`` column of sample ``n``, factor ``c`` is the
 outer product ``δ_{c,n} ⊗ z_n``, so its Gram block is the Hadamard product
@@ -8,7 +9,7 @@ Gram matrices use the flat column index ``c·S + n`` (factor-major).
 """
 
 from dataclasses import dataclass
-from typing import Any, Dict, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence
 
 import torch
 from torch import nn
@@ -84,6 +85,28 @@ def gram_matrix_mixed(
     return total
 
 
+def v_mat_prod_mixed(
+    vt_mixed: Dict[str, Any],
+    gram_vecs: torch.Tensor,
+    paths: Sequence[str],
+) -> List[torch.Tensor]:
+    """Back-projection ``V @ ẽ`` over a mixed ``Vᵀ`` dict: stacked rows
+    ``[K, CF·S]`` → one ``[K, *param.shape]`` tensor per path."""
+    from vivit_tpu_torch.tapped import ConvVT
+
+    k = gram_vecs.shape[0]
+    gv = gram_vecs.reshape(k, -1)
+    out = []
+    for p in paths:
+        leaf = vt_mixed[p]
+        if isinstance(leaf, (DenseFactor, ConvVT)):
+            out.append(leaf.v_mat_prod(gv))
+        else:
+            cf, s = leaf.shape[:2]
+            out.append((gv @ leaf.reshape(cf * s, -1)).reshape(k, *leaf.shape[2:]))
+    return out
+
+
 def eigvalsh_structured(
     module: nn.Module,
     loss: Loss,
@@ -116,19 +139,14 @@ def eigvalsh_structured(
     from vivit_tpu_torch.eig import full_eigh
     from vivit_tpu_torch.precision import _PRECISIONS, matmul_precision
     from vivit_tpu_torch.tapped import tapped_ggn_sqrt_vt
-    from vivit_tpu_torch.utils.device import resolve_device
+    from vivit_tpu_torch.utils.device import check_module_on, resolve_device
 
     device = resolve_device(device)
     if deflate_ce_null:
         from vivit_tpu_torch.deflate import check_deflatable
 
         check_deflatable(loss)
-    for name, p in module.named_parameters():
-        if p.device != device:
-            raise ValueError(
-                f"parameter {name!r} lies on {p.device}, not on {device}; "
-                "move the module first (module.to(device))."
-            )
+    check_module_on(module, device)
     X = torch.as_tensor(X, dtype=torch.float32, device=device)
     y = torch.as_tensor(y, device=device)
 

@@ -20,3 +20,13 @@ def resolve_device(device=None) -> torch.device:
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
     return device
+
+
+def check_module_on(module, device: torch.device) -> None:
+    """Raise unless every parameter of ``module`` lies on ``device``."""
+    for name, p in module.named_parameters():
+        if p.device != device:
+            raise ValueError(
+                f"parameter {name!r} lies on {p.device}, not on {device}; "
+                "move the module first (module.to(device))."
+            )
