@@ -630,7 +630,8 @@ def phase_refine(jc, gram_d, V_d):
 
     from vivit_tpu_torch.eigdc import refine_eigh
 
-    (ev, Q, res), launches = launches_of(jc, lambda: refine_eigh(gram_d, V_d))
+    ((ev, Q, res), batches), launches = launches_of(
+        jc, lambda: recording_eigh(lambda: refine_eigh(gram_d, V_d)))
     ref = torch.linalg.eigvalsh(gram_d.double())
     err = (ev.double() - ref).abs()
     tol = ATOL * ref.abs().max() + RTOL * ref.abs()
@@ -642,6 +643,10 @@ def phase_refine(jc, gram_d, V_d):
     check(launches == 2, f"refine_eigh: expected 2 Jacobi launches, got {launches}")
     check(float(res) < 1e-4, f"refine_eigh: residual {float(res):.2e}")
     check(ratio <= 1.0, f"refine_eigh: eigenvalues off float64 (max err/tol {ratio:.2f})")
+    win = time_windows(jc, batches, "refine_eigh")
+    print(f"refine_eigh, its {launches} window launches: kernel {win[0]:.4f} ms, "
+          f"torch.linalg.eigh {win[1]:.4f} ms, bound {win[2]:.6f} ms, plain "
+          f"{win[3]:.3f} ms", flush=True)
     return launches
 
 
