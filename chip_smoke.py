@@ -43,7 +43,17 @@ Phases, each printed as it runs:
    clock around a synchronised call) and its stages on CUDA events; one
    profiled N=512 eigenpair call; ``torch.linalg.eigh`` on each batch shape
    the N=512 eigenpair solve hands ``batched_eigh``.
-8. The launches of each path, a JSON line of the kernels, then
+8. **Newton step**: ``newton_step_structured(k=10, damping=1.0)`` at N=128
+   with the headline settings, ``solver="lobpcg"`` (the JAX package's bench
+   leg, ``bench.py:181-190``) and ``solver="dc"``: 0 and 6 Jacobi launches,
+   LOBPCG's iteration count, and against an oracle (the step's own Gram,
+   the top-10 of the deflated Gram from float64 ``torch.linalg.eigh``):
+   the top-10 eigenvalues, the step, γ and λ, LOBPCG's residuals against
+   its stopping rule (:func:`newton_gates`); the dc
+   step's six window batches through the kernel and its plain version;
+   each step's call time (median of 5) and its six stages on CUDA events;
+   one profiled lobpcg call with its host syncs.
+9. The launches of each path, a JSON line of the kernels, then
    ``{"ok": true, "device": ...}`` last.
 
 Any failed check exits non-zero.  Without a CUDA device it exits 2 and
@@ -55,6 +65,7 @@ import subprocess
 import sys
 import time
 import warnings
+from contextlib import contextmanager
 
 import numpy as np
 
@@ -75,6 +86,12 @@ RES_RTOL, RES_ATOL = 5e-4, 1e-5
 ORTH_RTOL, ORTH_ATOL = 1e-3, 2e-4
 VEC_RTOL, VEC_ATOL = 2e-2, 2e-3
 HEADLINE = dict(precision="highest", gram_precision="bf16", deflate_ce_null=True)
+# BASELINE.md: the Newton step rtol 1e-5 / atol 1e-5, γ atol 1e-4, λ atol
+# 1e-5 (atols scaled by max(max|oracle|, 1)); the lobpcg step at the JAX
+# package's recorded lobpcg+deflate deviation, 7.7e-4 (tests/test_engines.py)
+NEWTON_RTOL, NEWTON_ATOL, GAMMA_ATOL, LAMBDA_ATOL = 1e-5, 1e-5, 1e-4, 1e-5
+LOBPCG_STEP_ATOL = 7.7e-4
+LOBPCG_ITERS = 100  # topk_eigh's default lobpcg_iters
 
 
 class SmokeFailure(Exception):
@@ -342,9 +359,11 @@ def phase_main_path(jc):
     return launches
 
 
-def profile_step(step, top=12):
+def profile_step(step, top=12, syncs=False):
     """One main-path step under ``torch.profiler``: device busy share, kernel
-    launches, and the kernels that take the most device time."""
+    launches, and the kernels that take the most device time; with
+    ``syncs``, also the host syncs and where they come from
+    (:func:`print_host_syncs`)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -373,6 +392,43 @@ def profile_step(step, top=12):
     for e in sorted(host, key=lambda e: -e.self_cpu_time_total)[:top]:
         print(f"  host   {e.self_cpu_time_total / 1e3:9.3f} ms {e.count:6d}x  "
               f"{e.key[:100]}", flush=True)
+    if syncs:
+        print_host_syncs(prof, step)
+
+
+SYNC_EVENTS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaMemcpyAsync",
+               "aten::_local_scalar_dense")
+
+
+def print_host_syncs(prof, step, top=12):
+    """The host syncs of a profiled call (runtime synchronisations, copies,
+    scalar reads of device tensors, device-to-host copies), then where they
+    come from: one more call of ``step`` under PyTorch's sync debug mode,
+    whose warnings carry the Python line that synchronised."""
+    import os
+    from collections import Counter
+
+    import torch
+    from torch.autograd import DeviceType
+
+    counts = Counter(e.name for e in prof.events() if e.name in SYNC_EVENTS)
+    dtoh = sum(1 for e in prof.events()
+               if e.device_type == DeviceType.CUDA and "DtoH" in e.name)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            step()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    root = os.path.dirname(os.path.abspath(__file__))
+    where = Counter(f"{os.path.relpath(w.filename, root)}:{w.lineno}" for w in caught
+                    if "synchroniz" in str(w.message))
+    print(f"  host syncs: {dict(counts)}, device-to-host copies {dtoh}; "
+          f"{sum(where.values())} synchronizing operations by Python line:", flush=True)
+    for line, count in where.most_common(top):
+        print(f"    {count:5d}x {line}", flush=True)
 
 
 def port_model():
@@ -777,6 +833,212 @@ def phase_times(jc, model, inputs_small, inputs_large, spectrum_inputs):
               flush=True)
 
 
+@contextmanager
+def recorded(owner, name):
+    """Inside the block, every call of ``owner.name`` appends ``(args,
+    result)`` to the yielded list."""
+    calls = []
+    original = getattr(owner, name)
+
+    def wrapper(*args, **kwargs):
+        out = original(*args, **kwargs)
+        calls.append((args, out))
+        return out
+
+    setattr(owner, name, wrapper)
+    try:
+        yield calls
+    finally:
+        setattr(owner, name, original)
+
+
+def newton_step(model, loss, X, y, solver, device=None):
+    """The bench leg's ``newton_step_structured`` (k=10, damping 1, bf16
+    Gram, CE deflation) with ``solver``; returns ``(step, Vᵀ, the arguments
+    and result of its gammas_lambdas, its LOBPCG solves)``."""
+    import vivit_tpu_torch as vtt
+    from vivit_tpu_torch import lobpcg, structured
+    from vivit_tpu_torch.optim import utils as optim_utils
+
+    with recorded(structured, "gram_matrix_mixed") as grams, \
+            recorded(optim_utils, "gammas_lambdas") as derivs, \
+            recorded(lobpcg, "lobpcg_standard") as solves:
+        step = vtt.newton_step_structured(model, loss, X, y, TOP_K, damping=1.0,
+                                          solver=solver, device=device, **HEADLINE)
+    check(len(grams) == 1 and len(derivs) == 1, "one Gram and one γ/λ per step")
+    return step, grams[0][0][0], derivs[0], solves
+
+
+def newton_oracle(model, X, vt, derivs):
+    """The step's own pipeline on its own bf16 Gram, with the top-k from
+    float64 ``torch.linalg.eigh`` of the Gram-level deflated Gram (γ/λ and
+    the coefficients in float64): ``(the deflated Gram's float64 spectrum,
+    step, γ, λ)``."""
+    import torch
+
+    from vivit_tpu_torch import deflate
+    from vivit_tpu_torch.optim.directional_damped_newton import newton_step_from_derivatives
+    from vivit_tpu_torch.optim.utils import gammas_lambdas
+    from vivit_tpu_torch.precision import full_f32
+
+    (gram, _, _, v_t_g, s), _ = derivs
+    paths = [name for name, _ in model.named_parameters()]
+    with full_f32():
+        w = deflate.ce_null_complement(deflate.ce_probs(model, X))
+        ev, V = torch.linalg.eigh(deflate.deflate_gram(gram, w).double())
+        ev_k, V_k = ev[-TOP_K:], deflate.lift_gram_vecs(V[:, -TOP_K:], w.double())
+        gammas, lambdas = gammas_lambdas(gram.double(), ev_k, V_k, v_t_g.double(), s)
+        step = newton_step_from_derivatives(vt, paths, ev_k.float(), V_k.float(),
+                                            gammas.float(), lambdas.float(), 1.0)
+    return ev, step, gammas, lambdas
+
+
+def newton_gates(solver, step, derivs, oracle, solves):
+    """The Newton phase's bars as ``{name: (max err / tol, gated)}`` (≤ 1
+    passes): the top-k eigenvalues against float64; the step at BASELINE's
+    Newton bar, for lobpcg at max|step − oracle| ≤ 7.7e-4·max(max|oracle|,
+    1); γ up to sign and λ at BASELINE's bars.
+
+    LOBPCG stops once every residual is below eps·10·n·(‖Gx‖ + θ), ~1e-3
+    relative at n=1152, which leaves its vectors, and so γ and λ, outside
+    BASELINE's bars against the float64 eigenvectors (the JAX package's own
+    LOBPCG against its eigh too).  For lobpcg those two are printed; what is
+    gated is its residuals against that rule (recomputed as the loop does)
+    and γ, λ against the pipeline in float64 on its own eigenpairs."""
+    import torch
+
+    from vivit_tpu_torch.optim.utils import gammas_lambdas
+    from vivit_tpu_torch.precision import full_f32
+
+    ev64, step_o, gammas_o, lambdas_o = oracle
+    (gram, evals, evecs, v_t_g, s), (gammas, lambdas) = derivs
+    ref = ev64[-TOP_K:]
+    ratios = {"top-10 eigenvalues": (((evals.double() - ref).abs() / (
+        ATOL * ev64.abs().max() + RTOL * ref.abs())).max(), True)}
+    scale = max(max(float(o.abs().max()) for o in step_o), 1.0)
+    ratios["step"] = (max(
+        ((g.double() - o.double()).abs()
+         / (LOBPCG_STEP_ATOL * scale if solver == "lobpcg"
+            else NEWTON_ATOL * scale + NEWTON_RTOL * o.double().abs())).max()
+        for g, o in zip(step, step_o)), True)
+    refs = [("", gammas_o, lambdas_o, solver != "lobpcg")]
+    if solver == "lobpcg":
+        (A, _), (theta, X, _) = solves[0]
+        with full_f32():
+            AX = A @ X
+            resid = torch.linalg.vector_norm(AX - theta[None] * X, dim=0)
+            rule = torch.finfo(A.dtype).eps * 10 * A.shape[0] * (
+                torch.linalg.vector_norm(AX, dim=0) + theta)
+        ratios["residual/stopping rule"] = ((resid / rule).max(), True)
+        own = gammas_lambdas(gram.double(), evals.double(), evecs.double(),
+                             v_t_g.double(), s)
+        refs.append((" on its own eigenpairs", *own, True))
+    for suffix, gammas_r, lambdas_r, gated in refs:
+        sign = (gammas.double() * gammas_r).sum(dim=0).sign()
+        for name, got, want, atol in (("γ", gammas.double() * sign, gammas_r, GAMMA_ATOL),
+                                      ("λ", lambdas.double(), lambdas_r, LAMBDA_ATOL)):
+            tol = atol * max(float(want.abs().max()), 1.0) + NEWTON_RTOL * want.abs()
+            ratios[name + suffix] = (((got - want).abs() / tol).max(), gated)
+    return {name: (float(r), gated) for name, (r, gated) in ratios.items()}
+
+
+def newton_stages(model, loss, X, y, solver):
+    """The Newton step's stages on CUDA events, built from the pieces
+    ``newton_step_structured`` calls."""
+    from vivit_tpu_torch import deflate
+    from vivit_tpu_torch.eig import topk_eigh
+    from vivit_tpu_torch.ggn import batch_grad
+    from vivit_tpu_torch.optim.directional_damped_newton import newton_step_from_derivatives
+    from vivit_tpu_torch.optim.utils import gammas_lambdas
+    from vivit_tpu_torch.precision import _PRECISIONS
+    from vivit_tpu_torch.structured import gram_matrix_mixed, vt_mat_prod_mixed
+    from vivit_tpu_torch.tapped import tapped_ggn_sqrt_vt
+
+    paths = [name for name, _ in model.named_parameters()]
+    n = X.shape[0]
+
+    def gram_stage(vt):
+        gram = gram_matrix_mixed(vt, paths, generic_precision=_PRECISIONS["bf16"])
+        w = deflate.ce_null_complement(deflate.ce_probs(model, X))
+        return vt, gram, w, deflate.deflate_gram(gram, w)
+
+    def solve_stage(state):
+        vt, gram, w, gram_d = state
+        evals, vecs = topk_eigh(gram_d, TOP_K, solver=solver)
+        return vt, gram, evals, deflate.lift_gram_vecs(vecs, w)
+
+    def vtg_stage(state):
+        (vt, gram, evals, vecs), grads = state
+        v_t_g = vt_mat_prod_mixed(vt, [grads[p] * n for p in paths], paths)
+        return vt, gram, evals, vecs, v_t_g
+
+    def step_stage(state):
+        vt, gram, evals, vecs, v_t_g = state
+        gammas, lambdas = gammas_lambdas(gram, evals, vecs, v_t_g, n)
+        return newton_step_from_derivatives(vt, paths, evals, vecs, gammas, lambdas, 1.0)
+
+    return stage_ms([
+        ("V-transform", lambda _: tapped_ggn_sqrt_vt(model, loss, X, y)),
+        ("Gram and Gram-level deflation", gram_stage),
+        (f"top-{TOP_K} solve ({solver}, lifted)", solve_stage),
+        ("per-sample gradients", lambda state: (state, batch_grad(model, loss, X, y))),
+        ("Vᵀg", vtg_stage),
+        ("γ/λ and back-projection", step_stage)], reps=5)
+
+
+def phase_newton(jc, model):
+    """``newton_step_structured`` at N=128, the bench leg (lobpcg) and the
+    same step with the dc solver, against the float64 oracle; their
+    launches, times, stages and a profiled lobpcg call.  Returns the
+    launches per solver."""
+    import vivit_tpu_torch as vtt
+
+    X, y = port_batch(N)
+    loss = vtt.CrossEntropyLoss("mean")
+    launches, failed = {}, []
+    for solver in ("lobpcg", "dc"):
+        label = f"newton_step_structured N={N} ({solver})"
+        untripped(lambda: newton_step(model, loss, X, y, solver), label)  # warm-up
+        ((step, vt, derivs, solves), batches), launches[solver] = launches_of(
+            jc, lambda: recording_eigh(lambda: untripped(
+                lambda: newton_step(model, loss, X, y, solver), label)))
+        ratios = newton_gates(solver, step, derivs, newton_oracle(model, X, vt, derivs),
+                              solves)
+        iters = [out[2] for _, out in solves]
+        print(f"{label}: Jacobi launches {launches[solver]}, LOBPCG iterations {iters} "
+              f"(of at most {LOBPCG_ITERS}), top-{TOP_K} "
+              f"{[round(v, 6) for v in derivs[0][1].tolist()]}; against the float64 "
+              "oracle, max err/tol: " + ", ".join(
+                  f"{k} {v:.3f}" + ("" if gated else " (not gated)")
+                  for k, (v, gated) in ratios.items()), flush=True)
+        expect = 0 if solver == "lobpcg" else 6
+        if launches[solver] != expect:
+            failed.append(f"{label}: {launches[solver]} Jacobi launches, expected {expect}")
+        if solver == "lobpcg" and not (len(iters) == 1 and iters[0] < LOBPCG_ITERS):
+            failed.append(f"{label}: LOBPCG iterations {iters}")
+        failed += [f"{label}: {k} at {v:.2f} of its bar"
+                   for k, (v, gated) in ratios.items() if gated and v > 1.0]
+        if solver == "dc":
+            win = time_windows(jc, batches, label)
+            print(f"{label}, its {launches[solver]} window launches: kernel {win[0]:.4f} ms, "
+                  f"torch.linalg.eigh {win[1]:.4f} ms, bound {win[2]:.6f} ms, plain "
+                  f"{win[3]:.3f} ms", flush=True)
+    check(not failed, "; ".join(failed))
+
+    for solver in ("lobpcg", "dc"):
+        def call():
+            return vtt.newton_step_structured(model, loss, X, y, TOP_K, damping=1.0,
+                                              solver=solver, **HEADLINE)
+
+        print(f"newton_step_structured N={N} ({solver}): {host_ms(call, reps=5):.3f} ms "
+              "median of 5 (host clock); stages (CUDA events, median of 5): "
+              f"{newton_stages(model, loss, X, y, solver)}", flush=True)
+    print(f"profiled call: newton_step_structured N={N} (lobpcg)", flush=True)
+    profile_step(lambda: vtt.newton_step_structured(
+        model, loss, X, y, TOP_K, damping=1.0, solver="lobpcg", **HEADLINE), syncs=True)
+    return launches
+
+
 def main():
     import torch
 
@@ -811,6 +1073,7 @@ def main():
         spectrum_launches, spectrum = phase_spectrum_large(jc, model)
         large, large_launches, _, _ = phase_eigenpairs(jc, model, N_LARGE, 0)
         phase_times(jc, model, small, large, spectrum)
+        newton_launches = phase_newton(jc, model)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAIL: {exc}", file=sys.stderr)
         return 1
@@ -820,7 +1083,9 @@ def main():
         f"eigh_topk N={N}": evecs_launches,
         f"refine_eigh N={N}": refine_launches,
         f"eigvalsh_structured N={N_LARGE}": spectrum_launches,
-        f"eigh_topk N={N_LARGE}": large_launches}), flush=True)
+        f"eigh_topk N={N_LARGE}": large_launches,
+        f"newton_step_structured N={N} (lobpcg)": newton_launches["lobpcg"],
+        f"newton_step_structured N={N} (dc)": newton_launches["dc"]}), flush=True)
 
     t = [timing[s] for s in HEADLINE_SHAPES]
     kernels = [{

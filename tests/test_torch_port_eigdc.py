@@ -104,17 +104,21 @@ def test_full_eigh_backends_agree():
 
 
 def test_unported_modes_raise():
-    """What stays unported: the LOBPCG top-k solver (ROADMAP queue 1 item
-    3), in ``topk_eigh`` and through ``eigh_topk``."""
+    """Nothing of ``topk_eigh`` raises any more: the LOBPCG top-k solver,
+    once unported, gives the top of the spectrum, also through
+    ``eigh_topk``, where it agrees with the vendor solver."""
     from vivit_tpu_torch import CNN3c3d, CrossEntropyLoss, eigh_topk
 
-    A = torch.tensor(_spectrum_matrix(SPECTRA["exp-decay"](200)))
-    with pytest.raises(NotImplementedError, match="lobpcg"):
-        topk_eigh(A, 5, solver="lobpcg")
-    X = np.zeros((2, 32, 32, 3), np.float32)
-    with pytest.raises(NotImplementedError, match="lobpcg"):
-        eigh_topk(CNN3c3d(), CrossEntropyLoss(), X, np.zeros(2, np.int32), 2,
-                  solver="lobpcg", device="cpu")
+    A = _spectrum_matrix(SPECTRA["exp-decay"](200))
+    ev, _ = topk_eigh(torch.tensor(A), 5, solver="lobpcg")
+    _assert_close(ev.double().numpy(), np.linalg.eigvalsh(A.astype(np.float64))[-5:])
+    X = np.random.default_rng(0).normal(size=(2, 32, 32, 3)).astype(np.float32)
+    y = np.array([3, 7], np.int32)
+    torch.manual_seed(0)
+    model = CNN3c3d()
+    got, _ = eigh_topk(model, CrossEntropyLoss(), X, y, 2, solver="lobpcg", device="cpu")
+    want, _ = eigh_topk(model, CrossEntropyLoss(), X, y, 2, device="cpu")
+    _assert_close(got.double().numpy(), want.double().numpy())
 
 
 def test_q_carrying_polish_matches_jax():

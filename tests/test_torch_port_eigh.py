@@ -161,13 +161,23 @@ def test_topk_eigh_solvers_agree_with_jax():
 
 
 def test_unported_lobpcg_raises(models):
-    A = torch.eye(8)
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
-        topk_eigh(A, 2, solver="lobpcg")
-    X, y = _batch(2)
-    with pytest.raises(NotImplementedError, match="lobpcg"):
-        eigh_topk(models[2], CrossEntropyLoss(), X, y, 2, solver="lobpcg",
-                  device="cpu")
+    """The LOBPCG solver, once unported, runs: ``topk_eigh`` within the
+    eigenvalue bar of float64, and ``eigh_topk`` end to end at N=4 with CE
+    deflation (the deflated 36² Gram, 5·k < 36) against the JAX package's."""
+    A = _ggn_like_matrix(200, seed=3)
+    ev, vecs = topk_eigh(torch.tensor(A), 6, solver="lobpcg")
+    ev64, vecs64 = np.linalg.eigh(A.astype(np.float64))
+    _assert_evals(ev.numpy(), ev64[-6:])
+    _assert_vecs(vecs.numpy().T, vecs64[:, -6:].T)
+    fmod, fvars, model = models
+    X, y = _batch(4)
+    ev_j, _ = jax.jit(lambda v, X, y: vt.eigh_topk(
+        fmod, vt.CrossEntropyLoss("mean"), v, X, y, 5, solver="lobpcg",
+        deflate_ce_null=True))(fvars, jnp.asarray(X), jnp.asarray(y))
+    ev, vecs = eigh_topk(models[2], CrossEntropyLoss(), X, y, 5, solver="lobpcg",
+                         deflate_ce_null=True, device="cpu")
+    _assert_evals(ev.numpy(), np.asarray(ev_j))
+    assert [v.shape[0] for v in vecs] == [5] * len(vecs)
 
 
 def test_leaves_from_flax_matches_params_from_flax(params_np):

@@ -4,8 +4,8 @@ Low-rank GGN curvature access on an NVIDIA H100.  Module names mirror the
 JAX package's, so each counterpart is easy to find; the JAX package stays the
 reference and this package imports none of it.
 
-The port so far covers the GGN spectrum and top eigenpairs of CIFAR-10
-3c3d end to end:
+The port so far covers the GGN spectrum, the top eigenpairs and the damped
+Newton step of CIFAR-10 3c3d end to end:
 
 * :func:`~vivit_tpu_torch.structured.eigvalsh_structured`: tapped
   V-transform (:mod:`~vivit_tpu_torch.tapped`), exact CE loss factors with
@@ -14,33 +14,60 @@ The port so far covers the GGN spectrum and top eigenpairs of CIFAR-10
   (:func:`~vivit_tpu_torch.eig.full_eigh`);
 * :func:`~vivit_tpu_torch.linalg.eigh.eigh_topk`: top-k eigenpairs with
   Gram-level CE deflation and back-projection to parameter space;
+* :func:`~vivit_tpu_torch.structured.newton_step_structured`: the damped
+  Newton step along the top-k GGN directions (per-sample gradients
+  :func:`~vivit_tpu_torch.ggn.batch_grad`, γ/λ), and the module form of
+  :mod:`~vivit_tpu_torch.optim` (``newton_step_topk``,
+  ``directional_derivatives_topk`` and the two computation classes);
 * :func:`~vivit_tpu_torch.eigdc.eigh_dc`: the spectral divide-and-conquer
   eigensolver (chain and strip paths, both modes) and
   :func:`~vivit_tpu_torch.eigdc.refine_eigh`, whose window solves run the
   hand-written Hopper Jacobi kernel
-  (:mod:`~vivit_tpu_torch.kernels.jacobi_cuda`, ``csrc/jacobi.cu``).
+  (:mod:`~vivit_tpu_torch.kernels.jacobi_cuda`, ``csrc/jacobi.cu``), and
+  LOBPCG for the top-k (:mod:`~vivit_tpu_torch.lobpcg`).
 
 Entry points run on the CUDA card unless the caller passes ``device="cpu"``.
 """
 
 from vivit_tpu_torch.eig import full_eigh, topk_eigh
 from vivit_tpu_torch.eigdc import eigh_dc, eigvalsh_dc, refine_eigh
+from vivit_tpu_torch.ggn import batch_grad
 from vivit_tpu_torch.linalg.eigh import eigh_topk
+from vivit_tpu_torch.linalg.utils import keep_all, keep_nonzero, keep_top_k
 from vivit_tpu_torch.losses import CrossEntropyLoss, Loss
 from vivit_tpu_torch.models import CNN3c3d
-from vivit_tpu_torch.structured import eigvalsh_structured
+from vivit_tpu_torch.optim.directional_damped_newton import (
+    DirectionalDampedNewtonComputation,
+    constant_damping,
+    newton_step_topk,
+)
+from vivit_tpu_torch.optim.directional_derivatives import (
+    DirectionalDerivativesComputation,
+    directional_derivatives_topk,
+)
+from vivit_tpu_torch.structured import eigvalsh_structured, newton_step_structured
 
 __version__ = "0.1.0"
 
 __all__ = [
     "CNN3c3d",
     "CrossEntropyLoss",
+    "DirectionalDampedNewtonComputation",
+    "DirectionalDerivativesComputation",
     "Loss",
+    "batch_grad",
+    "constant_damping",
+    "directional_derivatives_topk",
     "eigh_dc",
     "eigh_topk",
     "eigvalsh_dc",
     "eigvalsh_structured",
     "full_eigh",
+    "keep_all",
+    "keep_nonzero",
+    "keep_top_k",
+    "newton_step_structured",
+    "newton_step_topk",
     "refine_eigh",
     "topk_eigh",
 ]

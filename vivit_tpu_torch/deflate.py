@@ -1,6 +1,5 @@
 """Analytic null-space deflation of the cross-entropy GGN (counterpart of
-``vivit_tpu/deflate.py``; ``deflated_eigh`` and ``deflated_eigvalsh`` are
-not ported yet).
+``vivit_tpu/deflate.py``; ``deflated_eigvalsh`` is not ported yet).
 
 For exact CE factors ``s_{n,c} = √p_c (e_c − p)`` each sample's factor rows
 satisfy ``Σ_c √p_{n,c} s_{n,c} = 0``, so the ``[CS, CS]`` Gram carries ``S``
@@ -9,9 +8,10 @@ structural zero eigenvalues with known eigenvectors.  Two places use it:
 * factor level (:func:`vivit_tpu_torch.ggn.v_factors`): the factor rows are
   projected onto the complement of ``√p_n`` before the backward, so the
   Gram is ``[(C−1)S, (C−1)S]`` from the start (eigenvalues only);
-* Gram level (:func:`deflate_gram`, :func:`deflated_topk_eigh`): the full
-  Gram is projected, and eigenvectors are lifted back
-  (:func:`lift_gram_vecs`) to the full Gram's, for back-projection.
+* Gram level (:func:`deflate_gram`, :func:`deflated_topk_eigh`,
+  :func:`deflated_eigh`): the full Gram is projected, and eigenvectors are
+  lifted back (:func:`lift_gram_vecs`) to the full Gram's, for
+  back-projection.
 
 Gram matrices use the flat index ``c·S + n``.  The projections run in full
 f32.
@@ -69,8 +69,30 @@ def lift_gram_vecs(vecs_d: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return lifted.reshape(c * s, -1)
 
 
+def deflated_eigh(gram: torch.Tensor, probs: torch.Tensor, *,
+                  backend: str = "xla", return_info: bool = False):
+    """Full ascending eigenpairs of a CE Gram through exact null deflation.
+
+    The ``S`` null directions come back as exact zeros with their analytic
+    eigenvectors (:func:`ce_null_vectors`); the other pairs are the deflated
+    Gram's, lifted (:func:`lift_gram_vecs`).  ``backend`` as in
+    :func:`vivit_tpu_torch.eig.full_eigh`; ``return_info`` adds its guard
+    info.
+    """
+    from vivit_tpu_torch.eig import full_eigh
+
+    w = ce_null_complement(probs)
+    evals_d, evecs_d, info = full_eigh(deflate_gram(gram, w), backend=backend,
+                                       eigenvectors=True, return_info=True)
+    evals = torch.cat([evals_d.new_zeros(probs.shape[0]), evals_d])
+    evecs = torch.cat([ce_null_vectors(probs), lift_gram_vecs(evecs_d, w)], dim=1)
+    order = torch.argsort(evals, stable=True)  # the null block first, in order
+    out = (evals[order], evecs[:, order])
+    return (*out, info) if return_info else out
+
+
 def deflated_topk_eigh(gram: torch.Tensor, probs: torch.Tensor, k: int, *,
-                       solver: str = "eigh"):
+                       solver: str = "eigh", lobpcg_iters: int = 100):
     """Top-``k`` eigenpairs of a CE Gram through exact null deflation:
     ``(evals [k] ascending, evecs [CS, k])``.
 
@@ -86,7 +108,8 @@ def deflated_topk_eigh(gram: torch.Tensor, probs: torch.Tensor, k: int, *,
             "beyond that the top-k reaches the structural null space."
         )
     w = ce_null_complement(probs)
-    evals, evecs_d = topk_eigh(deflate_gram(gram, w), k, solver=solver)
+    evals, evecs_d = topk_eigh(deflate_gram(gram, w), k, solver=solver,
+                               lobpcg_iters=lobpcg_iters)
     return evals, lift_gram_vecs(evecs_d, w)
 
 

@@ -1,5 +1,5 @@
 """Symmetric eigensolver dispatch (counterpart of ``vivit_tpu/eig.py``;
-``full_eigh`` and ``topk_eigh`` in this slice)."""
+``full_eigh`` and ``topk_eigh``)."""
 
 import torch
 
@@ -42,13 +42,16 @@ def full_eigh(
 
 
 def topk_eigh(gram: torch.Tensor, k: int, solver: str = "eigh",
-              return_info: bool = False):
+              lobpcg_iters: int = 100, return_info: bool = False):
     """Top-``k`` eigenpairs of a PSD Gram: ``(evals [k] ascending,
     evecs [dim, k][, info])``.
 
     ``solver="eigh"`` slices ``torch.linalg.eigh``; ``solver="dc"`` slices
     the spectral divide-and-conquer decomposition, and ``info`` is its guard
-    info (all zeros otherwise).  ``"lobpcg"`` is not ported yet.
+    info (all zeros otherwise).  ``solver="lobpcg"`` runs at most
+    ``lobpcg_iters`` LOBPCG iterations (:mod:`vivit_tpu_torch.lobpcg`;
+    ``5·k < dim``) from a normal start block drawn from a generator on the
+    Gram's device seeded with ``k``.
     """
     if solver == "eigh":
         evals, evecs = torch.linalg.eigh(gram)
@@ -58,10 +61,15 @@ def topk_eigh(gram: torch.Tensor, k: int, solver: str = "eigh",
 
         evals, evecs, info = eigh_dc(gram, return_info=True)
     elif solver == "lobpcg":
-        raise NotImplementedError(
-            "topk_eigh(solver='lobpcg') is not ported yet (ROADMAP queue 1 "
-            "item 3); use solver='eigh' or 'dc'."
-        )
+        from vivit_tpu_torch.lobpcg import lobpcg_standard
+
+        gen = torch.Generator(device=gram.device).manual_seed(k)
+        x0 = torch.randn((gram.shape[0], k), generator=gen, dtype=gram.dtype,
+                         device=gram.device)
+        theta, u, _ = lobpcg_standard(gram, x0, m=lobpcg_iters)
+        order = torch.argsort(theta)  # the Rayleigh-Ritz order is descending
+        out = (theta[order], u[:, order])
+        return (*out, no_trip_info(gram.device)) if return_info else out
     else:
         raise ValueError(f"Unknown solver {solver!r} (use 'eigh', 'lobpcg' or 'dc').")
     out = (evals[-k:], evecs[:, -k:])

@@ -1,5 +1,6 @@
-"""Loss-factor front half of the V-transform (counterpart of
-``vivit_tpu/ggn.py``; the exact branch only in this slice).
+"""Loss-factor front half of the V-transform and per-sample gradients
+(counterpart of ``vivit_tpu/ggn.py``; the exact branch and ``batch_grad``
+only in this slice).
 
 The GGN ``G = ρ Σ_n J_nᵀ H_n J_n = V Vᵀ`` has columns
 ``v_{n,c} = √ρ · J_nᵀ s_{n,c}`` for the factorization ``H_n = Σ_c s_c s_cᵀ``.
@@ -7,9 +8,13 @@ The GGN ``G = ρ Σ_n J_nᵀ H_n J_n = V Vᵀ`` has columns
 that the tapped backward (:mod:`vivit_tpu_torch.tapped`) pulls back.
 """
 
+from typing import Dict, Optional, Sequence
+
 import torch
+from torch import nn
 
 from vivit_tpu_torch.losses import Loss
+from vivit_tpu_torch.utils.checks import check_subsampling_unique
 
 
 def v_factors(loss: Loss, f: torch.Tensor, y: torch.Tensor, *,
@@ -35,3 +40,34 @@ def v_factors(loss: Loss, f: torch.Tensor, y: torch.Tensor, *,
         with full_f32():
             factors = torch.einsum("sca,sck->sak", w, factors)
     return factors
+
+
+def batch_grad(module: nn.Module, loss: Loss, X: torch.Tensor, y: torch.Tensor, *,
+               subsampling: Optional[Sequence[int]] = None,
+               batch_size: Optional[int] = None) -> Dict[str, torch.Tensor]:
+    """Per-sample gradients ``ρ·∇ℓ_n`` as ``{parameter name: [S, *shape]}``.
+
+    BackPACK's ``BatchGrad`` scaling, as in the JAX package: for mean
+    reduction each gradient carries the ``1/N`` factor (``N = batch_size``,
+    default ``X.shape[0]``).  ``torch.func.vmap`` of ``torch.func.grad``
+    over a one-sample ``functional_call``; full f32, so that cuDNN's
+    convolutions do not fall to TF32.
+    """
+    from torch.func import functional_call, grad, vmap
+
+    from vivit_tpu_torch.precision import full_f32
+
+    check_subsampling_unique(subsampling)
+    N = batch_size if batch_size is not None else X.shape[0]
+    if subsampling is not None:
+        idx = torch.as_tensor(list(subsampling), device=X.device)
+        X, y = X[idx], y[idx]
+    rho = loss.rho(N)
+    params = {name: p.detach() for name, p in module.named_parameters()}
+
+    def sample_loss(p, x_n, y_n):
+        f_n = functional_call(module, p, (x_n[None],))
+        return rho * loss.per_sample(f_n, y_n[None])[0]
+
+    with full_f32():
+        return vmap(grad(sample_loss), in_dims=(None, 0, 0))(params, X, y)

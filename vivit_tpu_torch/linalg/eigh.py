@@ -44,6 +44,7 @@ def eigh_topk(
     precision: str = "highest",
     gram_precision: Optional[str] = None,
     solver: str = "eigh",
+    lobpcg_iters: int = 100,
     deflate_ce_null: bool = False,
     device=None,
 ):
@@ -54,8 +55,9 @@ def eigh_topk(
     ``X`` is NHWC, ``y`` integer targets; both move to ``device``, which
     defaults to the CUDA card (``device="cpu"`` runs on the CPU);
     ``module``'s parameters must already lie there.  ``solver`` is
-    ``"eigh"`` (vendor) or ``"dc"`` (:mod:`vivit_tpu_torch.eigdc`,
-    eigenvector mode); ``gram_precision`` demotes the materialized Gram
+    ``"eigh"`` (vendor), ``"dc"`` (:mod:`vivit_tpu_torch.eigdc`,
+    eigenvector mode) or ``"lobpcg"`` (at most ``lobpcg_iters``
+    iterations); ``gram_precision`` demotes the materialized Gram
     contractions (``"bf16"``).  ``deflate_ce_null`` (exact cross-entropy)
     solves the top-``k`` on the deflated ``(C−1)·S`` Gram and lifts the
     vectors back; it needs ``k ≤ (C−1)·S``.
@@ -65,14 +67,11 @@ def eigh_topk(
     from vivit_tpu_torch.precision import _PRECISIONS, matmul_precision
     from vivit_tpu_torch.structured import gram_matrix_mixed
     from vivit_tpu_torch.tapped import tapped_ggn_sqrt_vt
-    from vivit_tpu_torch.utils.device import check_module_on, resolve_device
+    from vivit_tpu_torch.utils.device import inputs_on
 
-    device = resolve_device(device)
     if deflate_ce_null:
         check_deflatable(loss)
-    check_module_on(module, device)
-    X = torch.as_tensor(X, dtype=torch.float32, device=device)
-    y = torch.as_tensor(y, device=device)
+    X, y = inputs_on(module, X, y, device)
     if paths is None:
         paths = [name for name, _ in module.named_parameters()]
 
@@ -83,7 +82,9 @@ def eigh_topk(
         if deflate_ce_null:
             Xs = X if subsampling is None else X[list(subsampling)]
             evals, evecs = deflated_topk_eigh(gram, ce_probs(module, Xs), k,
-                                              solver=solver)
+                                              solver=solver,
+                                              lobpcg_iters=lobpcg_iters)
         else:
-            evals, evecs = topk_eigh(gram, k, solver=solver)
+            evals, evecs = topk_eigh(gram, k, solver=solver,
+                                     lobpcg_iters=lobpcg_iters)
         return evals, backproject(vt, evecs, evals, paths)

@@ -1,0 +1,196 @@
+"""Gram-space pipeline shared by the directional-derivative computations
+(counterpart of ``vivit_tpu/optim/utils.py``; module form).
+
+Math (mean reduction, ``ρ = 1/N``):
+
+* ``V`` columns are ``√(1/S_ggn) · J_nᵀ s_{n,c}`` over the GGN sub-sample
+  (the ``√(N/S)`` correction is folded in by the V-transform);
+* ``γ[n, k] = g_nᵀ e_k = (Vᵀ g_n)ᵀ ẽ_k / √λ̃_k`` with the unscaled
+  per-sample gradient ``g_n = ∇ℓ_n``;
+* ``λ[n, k] = e_kᵀ (J_nᵀ H_n J_n) e_k = S_ggn · ‖G̃[(:, n), :] ẽ_k‖² / λ̃_k``.
+"""
+
+from typing import Optional, Sequence, Tuple
+
+import torch
+from torch import nn
+
+from vivit_tpu_torch.losses import Loss
+
+
+def check_ported(module, mc_samples_ggn: int = 0, engine: str = "tapped") -> None:
+    """Raise ``NotImplementedError`` for what needs the generic V-transform
+    engine, which is not ported yet (ROADMAP queue 1 item 2): a model given
+    as a function, Monte-Carlo GGN factors, ``engine="vjp"``."""
+    if not isinstance(module, nn.Module):
+        raise NotImplementedError(
+            "the port takes an nn.Module; a model function needs the generic "
+            "V-transform engine, not ported yet (ROADMAP queue 1 item 2)."
+        )
+    if mc_samples_ggn:
+        raise NotImplementedError(
+            "Monte-Carlo GGN factors (mc_samples_ggn > 0) are not ported yet "
+            "(ROADMAP queue 1 item 2)."
+        )
+    if engine == "vjp":
+        raise NotImplementedError(
+            "engine='vjp' is the generic V-transform engine, not ported yet "
+            "(ROADMAP queue 1 item 2)."
+        )
+    if engine != "tapped":
+        raise ValueError(f"Unknown engine {engine!r} (use 'tapped' or 'vjp').")
+
+
+def derivatives_stage1(
+    module: nn.Module,
+    loss: Loss,
+    X: torch.Tensor,
+    y: torch.Tensor,
+    *,
+    group_paths: Sequence[Sequence[str]],
+    subsampling_grad: Optional[Sequence[int]] = None,
+    subsampling_ggn: Optional[Sequence[int]] = None,
+    mc_samples_ggn: int = 0,
+    batch_size: Optional[int] = None,
+    precision: str = "highest",
+    gram_precision: Optional[str] = None,
+    compute_eigh: bool = True,
+    eig_backend: str = "xla",
+    deflate_ce_null: bool = False,
+    engine: str = "tapped",
+    solver: str = "eigh",
+    k_top: Optional[int] = None,
+    lobpcg_iters: int = 100,
+):
+    """Stage 1: ``Vᵀ`` (tapped engine), and for each group of parameter
+    names its Gram, eigenpairs and ``Vᵀ G``.
+
+    Returns ``(vt, per_group)``, each entry ``(gram [CF·S, CF·S], evals,
+    evecs, V_t_g [CF·S, N_grad])``.  The eigenpairs: the full ascending
+    decomposition (``eig_backend`` ``"xla"`` or ``"dc"``); with ``k_top``
+    the top-``k_top`` by ``solver`` (``"eigh"``, ``"lobpcg"``, ``"dc"``);
+    ``None`` with ``compute_eigh=False``.  ``deflate_ce_null`` (exact CE)
+    solves on the Gram-level deflated Gram and lifts the vectors; the full
+    Gram is still returned (λ needs it).  ``X``, ``y`` lie on the module's
+    device.
+    """
+    from vivit_tpu_torch.eig import full_eigh, topk_eigh
+    from vivit_tpu_torch.ggn import batch_grad
+    from vivit_tpu_torch.precision import _PRECISIONS, matmul_precision
+    from vivit_tpu_torch.structured import gram_matrix_mixed, vt_mat_prod_mixed
+    from vivit_tpu_torch.tapped import tapped_ggn_sqrt_vt
+
+    check_ported(module, mc_samples_ggn, engine)
+    if loss.reduction != "mean":
+        raise ValueError(
+            "Directional derivatives require reduction='mean' "
+            "(same restriction as the reference)."
+        )
+    N = batch_size if batch_size is not None else X.shape[0]
+    with matmul_precision(precision):
+        vt = tapped_ggn_sqrt_vt(module, loss, X, y, subsampling=subsampling_ggn,
+                                batch_size=N)
+        grads = batch_grad(module, loss, X, y, subsampling=subsampling_grad,
+                           batch_size=N)
+        # undo the 1/N BatchGrad convention: unscaled per-sample gradients ∇ℓ_n
+        grads = {name: g * N for name, g in grads.items()}
+
+        probs = None
+        if deflate_ce_null:
+            from vivit_tpu_torch.deflate import ce_probs, check_deflatable
+
+            check_deflatable(loss)
+            Xs = X if subsampling_ggn is None else X[list(subsampling_ggn)]
+            probs = ce_probs(module, Xs)
+
+        per_group = []
+        for paths in group_paths:
+            gram = gram_matrix_mixed(vt, paths,
+                                     generic_precision=_PRECISIONS[gram_precision])
+            if compute_eigh and k_top is not None:
+                if probs is not None:
+                    from vivit_tpu_torch.deflate import deflated_topk_eigh
+
+                    evals, evecs = deflated_topk_eigh(gram, probs, k_top, solver=solver,
+                                                      lobpcg_iters=lobpcg_iters)
+                else:
+                    evals, evecs = topk_eigh(gram, k_top, solver=solver,
+                                             lobpcg_iters=lobpcg_iters)
+            elif compute_eigh and probs is not None:
+                from vivit_tpu_torch.deflate import deflated_eigh
+
+                evals, evecs = deflated_eigh(gram, probs, backend=eig_backend)
+            elif compute_eigh:
+                evals, evecs = full_eigh(gram, backend=eig_backend)
+            else:
+                evals, evecs = None, None
+            v_t_g = vt_mat_prod_mixed(vt, [grads[p] for p in paths], paths)
+            per_group.append((gram, evals, evecs, v_t_g))
+    return vt, tuple(per_group)
+
+
+def gammas_lambdas(
+    gram: torch.Tensor,
+    evals_sel: torch.Tensor,
+    evecs_sel: torch.Tensor,
+    v_t_g: torch.Tensor,
+    s_ggn: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Stage 2: directional derivatives from Gram-space quantities.
+
+    ``gram [CF·S, CF·S]``, the selected ``evals_sel [K]`` and Gram
+    eigenvectors ``evecs_sel [CF·S, K]``, the projections ``v_t_g [CF·S,
+    N_grad]`` and the number of GGN samples ``s_ggn`` → ``gammas [N_grad,
+    K]``, ``lambdas [S, K]``.
+    """
+    inv_sqrt = 1.0 / torch.sqrt(evals_sel)
+    gammas = torch.einsum("in,ik->nk", v_t_g, evecs_sel) * inv_sqrt[None, :]
+    cfs = gram.shape[0]
+    gram4 = gram.reshape(cfs // s_ggn, s_ggn, cfs)
+    g_ne = torch.einsum("cni,ik->cnk", gram4, evecs_sel)
+    lambdas = s_ggn * torch.sum(g_ne ** 2, dim=0) / evals_sel[None, :]
+    return gammas, lambdas
+
+
+def topk_derivatives(module, loss, X, y, k, *, paths, subsampling_grad,
+                     subsampling_ggn, mc_samples_ggn, batch_size, precision,
+                     gram_precision, solver, lobpcg_iters, deflate_ce_null, device):
+    """The top-``k`` half shared by :func:`~vivit_tpu_torch.optim.newton_step_topk`
+    and :func:`~vivit_tpu_torch.optim.directional_derivatives_topk`: stage 1
+    without eigensolve, the (optionally deflated) top-``k`` and γ/λ.
+
+    Returns ``(vt, paths, evals_sel, evecs_sel, gammas, lambdas)``.
+    """
+    from vivit_tpu_torch.eig import topk_eigh
+    from vivit_tpu_torch.precision import matmul_precision
+    from vivit_tpu_torch.utils.device import inputs_on
+
+    check_ported(module, mc_samples_ggn)
+    if deflate_ce_null:
+        from vivit_tpu_torch.deflate import check_deflatable
+
+        check_deflatable(loss)
+    X, y = inputs_on(module, X, y, device)
+    if paths is None:
+        paths = [name for name, _ in module.named_parameters()]
+    n = batch_size if batch_size is not None else X.shape[0]
+    s_ggn = len(subsampling_ggn) if subsampling_ggn is not None else n
+    vt, ((gram, _, _, v_t_g),) = derivatives_stage1(
+        module, loss, X, y, group_paths=(tuple(paths),),
+        subsampling_grad=subsampling_grad, subsampling_ggn=subsampling_ggn,
+        batch_size=batch_size, precision=precision,
+        gram_precision=gram_precision, compute_eigh=False,
+    )
+    with matmul_precision(precision):
+        if deflate_ce_null:
+            from vivit_tpu_torch.deflate import ce_probs, deflated_topk_eigh
+
+            Xs = X if subsampling_ggn is None else X[list(subsampling_ggn)]
+            evals_sel, evecs_sel = deflated_topk_eigh(
+                gram, ce_probs(module, Xs), k, solver=solver,
+                lobpcg_iters=lobpcg_iters)
+        else:
+            evals_sel, evecs_sel = topk_eigh(gram, k, solver=solver,
+                                             lobpcg_iters=lobpcg_iters)
+        gammas, lambdas = gammas_lambdas(gram, evals_sel, evecs_sel, v_t_g, s_ggn)
+    return vt, paths, evals_sel, evecs_sel, gammas, lambdas

@@ -1,6 +1,6 @@
 """Structure-exploiting GGN algebra (counterpart of
-``vivit_tpu/structured.py``; the eigenvalue pipeline and back-projection in
-this slice).
+``vivit_tpu/structured.py``; the eigenvalue pipeline, the back-projection,
+``Vᵀ``-products and the damped Newton step, module form).
 
 For a Linear weight the ``Vᵀ`` column of sample ``n``, factor ``c`` is the
 outer product ``δ_{c,n} ⊗ z_n``, so its Gram block is the Hadamard product
@@ -107,6 +107,75 @@ def v_mat_prod_mixed(
     return out
 
 
+def vt_mat_prod_mixed(
+    vt_mixed: Dict[str, Any],
+    mat_leaves: Sequence[torch.Tensor],
+    paths: Sequence[str],
+) -> torch.Tensor:
+    """``Vᵀ @ m`` over a mixed ``Vᵀ`` dict: ``mat_leaves[i]`` is
+    ``[K, *param.shape]`` for ``paths[i]`` → ``[CF·S, K]``."""
+    from vivit_tpu_torch.tapped import ConvVT
+
+    total = None
+    for p, m in zip(paths, mat_leaves):
+        leaf = vt_mixed[p]
+        if isinstance(leaf, (DenseFactor, ConvVT)):
+            r = leaf.vt_mat_prod(m)
+        else:
+            cf, s = leaf.shape[:2]
+            r = leaf.reshape(cf * s, -1) @ m.reshape(m.shape[0], -1).T
+        total = r if total is None else total + r
+    return total
+
+
+def newton_step_structured(
+    module: nn.Module,
+    loss: Loss,
+    X,
+    y,
+    k: int,
+    damping=1.0,
+    *,
+    subsampling_grad: Optional[Sequence[int]] = None,
+    subsampling_ggn: Optional[Sequence[int]] = None,
+    mc_samples_ggn: int = 0,
+    precision: str = "highest",
+    gram_precision: Optional[str] = None,
+    solver: str = "eigh",
+    lobpcg_iters: int = 100,
+    deflate_ce_null: bool = False,
+    engine: str = "tapped",
+    device=None,
+) -> List[torch.Tensor]:
+    """Damped Newton step along the top-``k`` GGN directions, one tensor
+    per parameter in ``named_parameters`` order and layout.
+
+    ``s = Σ_k −γ̄_k / (λ̄_k + δ_k) · e_k`` with the sample means of the
+    directional derivatives (:func:`vivit_tpu_torch.optim.utils.gammas_lambdas`)
+    and ``damping`` a scalar ``δ`` or a callable ``(evals, gram_evecs,
+    gammas, lambdas) -> δ [k]``.  Steps: the undeflated ``Vᵀ`` (tapped
+    engine) over the ``subsampling_ggn`` samples, the mixed Gram
+    (``gram_precision``), the top-``k`` (``solver`` ``"eigh"``, ``"dc"`` or
+    ``"lobpcg"``; with ``deflate_ce_null`` on the Gram-level deflated Gram,
+    lifted), per-sample gradients over ``subsampling_grad``, ``Vᵀ g``,
+    γ/λ, and the back-projection of the Gram-space step.  ``X`` is NHWC;
+    ``device`` defaults to the CUDA card (``device="cpu"`` runs on the CPU).
+    In module form this is :func:`vivit_tpu_torch.optim.newton_step_topk`
+    over all parameters; ``engine="vjp"`` (the generic engine) is not ported.
+    """
+    from vivit_tpu_torch.optim.directional_damped_newton import newton_step_topk
+    from vivit_tpu_torch.optim.utils import check_ported
+
+    if loss.reduction != "mean":
+        raise ValueError("Newton step requires reduction='mean'.")
+    check_ported(module, mc_samples_ggn, engine)
+    return newton_step_topk(
+        module, loss, X, y, k, damping, subsampling_grad=subsampling_grad,
+        subsampling_ggn=subsampling_ggn, precision=precision,
+        gram_precision=gram_precision, solver=solver, lobpcg_iters=lobpcg_iters,
+        deflate_ce_null=deflate_ce_null, device=device)
+
+
 def eigvalsh_structured(
     module: nn.Module,
     loss: Loss,
@@ -139,16 +208,13 @@ def eigvalsh_structured(
     from vivit_tpu_torch.eig import full_eigh
     from vivit_tpu_torch.precision import _PRECISIONS, matmul_precision
     from vivit_tpu_torch.tapped import tapped_ggn_sqrt_vt
-    from vivit_tpu_torch.utils.device import check_module_on, resolve_device
+    from vivit_tpu_torch.utils.device import inputs_on
 
-    device = resolve_device(device)
     if deflate_ce_null:
         from vivit_tpu_torch.deflate import check_deflatable
 
         check_deflatable(loss)
-    check_module_on(module, device)
-    X = torch.as_tensor(X, dtype=torch.float32, device=device)
-    y = torch.as_tensor(y, device=device)
+    X, y = inputs_on(module, X, y, device)
 
     with matmul_precision(precision):
         vt = tapped_ggn_sqrt_vt(module, loss, X, y, subsampling=subsampling,

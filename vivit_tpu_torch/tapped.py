@@ -103,17 +103,19 @@ def tapped_ggn_sqrt_vt(
     y: torch.Tensor,
     *,
     subsampling: Optional[Sequence[int]] = None,
+    batch_size: Optional[int] = None,
     deflate_ce_null: bool = False,
 ) -> Dict[str, Any]:
     """Mixed ``Vᵀ`` dict ``{parameter name: tensor | DenseFactor | ConvVT}``.
 
     Tensor leaves carry leading ``[CF', S]`` axes.  ``subsampling`` restricts
-    the GGN to those samples (columns rescaled by ``√(N/S)``).
+    the GGN to those samples (columns rescaled by ``√(N/S)``); ``batch_size``
+    is the ``N`` of the reduction weight (default ``X.shape[0]``).
     """
     from vivit_tpu_torch.structured import DenseFactor
 
     check_subsampling_unique(subsampling)
-    N = X.shape[0]
+    N = batch_size if batch_size is not None else X.shape[0]
     if subsampling is not None:
         idx = torch.as_tensor(list(subsampling), device=X.device)
         X, y = X[idx], y[idx]

@@ -30,3 +30,12 @@ def check_module_on(module, device: torch.device) -> None:
                 f"parameter {name!r} lies on {p.device}, not on {device}; "
                 "move the module first (module.to(device))."
             )
+
+
+def inputs_on(module, X, y, device=None):
+    """``(X, y)`` as an f32 and an integer tensor on the resolved ``device``
+    (:func:`resolve_device`), after checking that ``module`` lies there."""
+    device = resolve_device(device)
+    check_module_on(module, device)
+    return (torch.as_tensor(X, dtype=torch.float32, device=device),
+            torch.as_tensor(y, device=device))
