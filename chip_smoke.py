@@ -53,8 +53,20 @@ Phases, each printed as it runs:
    step's six window batches through the kernel and its plain version;
    each step's call time (median of 5) and its six stages on CUDA events;
    one profiled lobpcg call with its host syncs.
-9. The launches of each path, a JSON line of the kernels, then
-   ``{"ok": true, "device": ...}`` last.
+9. **Reference classes on a model function**: ``EigvalshComputation`` and
+   ``EighComputation`` (``keep_top_k(10)``) at N=128 with the headline
+   settings (``eig_backend="dc"``, Gram-level CE deflation of the 1280²
+   Gram) on the plain function ``functional_call(CNN3c3d(), params, (x,))``,
+   so the generic V-transform runs: 2 and 6 Jacobi launches, the guard,
+   the spectrum against float64 of its own deflated Gram (0 violations,
+   128 structural zeros), the eigenpair bars, the window batches through
+   kernel and plain version; the generic and the tapped engines' f32 Grams
+   on the same batch (engine agreement); Monte-Carlo factors
+   (``mc_samples=1, key=0``) bit-equal over two calls under deterministic
+   cuDNN and equal, up to the column scale, on a 64-sample sub-batch; call
+   times, stages, peak memory and one profiled call.
+10. The launches of each path, a JSON line of the kernels, then
+    ``{"ok": true, "device": ...}`` last.
 
 Any failed check exits non-zero.  Without a CUDA device it exits 2 and
 prints no result.
@@ -92,6 +104,12 @@ HEADLINE = dict(precision="highest", gram_precision="bf16", deflate_ce_null=True
 NEWTON_RTOL, NEWTON_ATOL, GAMMA_ATOL, LAMBDA_ATOL = 1e-5, 1e-5, 1e-4, 1e-5
 LOBPCG_STEP_ATOL = 7.7e-4
 LOBPCG_ITERS = 100  # topk_eigh's default lobpcg_iters
+# ‖G_generic − G_tapped‖_F/‖G_tapped‖_F of the f32 Grams: f32 summation noise,
+# the bar of tests/test_torch_port_ggn.py (ENGINE_BAR)
+ENGINE_BAR = 1e-5
+# a 64-sample sub-batch's Monte-Carlo columns against the full batch's (times
+# the column scale √2), relative to the leaf's largest entry
+MC_SUB_RTOL = 1e-5
 
 
 class SmokeFailure(Exception):
@@ -1039,6 +1057,212 @@ def phase_newton(jc, model):
     return launches
 
 
+@contextmanager
+def deterministic_cudnn():
+    """cuDNN restricted to deterministic algorithms inside the block."""
+    import torch
+
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = saved
+
+
+def generic_model():
+    """3c3d as a plain model function over a params dict on the card (the
+    module's own parameters stay unused on the CPU)."""
+    from torch.func import functional_call
+
+    import vivit_tpu_torch as vtt
+    from vivit_tpu_torch.convert import params_from_flax
+    from vivit_tpu_torch.models import cnn3c3d_flax_params
+
+    net = vtt.CNN3c3d(NUM_CLASSES)
+    params = {name: p.to("cuda") for name, p in
+              params_from_flax(cnn3c3d_flax_params(seed=0)).items()}
+    return (lambda p, x: functional_call(net, p, (x,))), params
+
+
+def check_spectrum(label, evals, gram_d, n):
+    """The entry's spectrum against float64 ``eigvalsh`` of its own deflated
+    Gram, the ``n`` structural zeros joined: 0 violations of the eigenvalue
+    bar and exactly ``n`` zeros."""
+    import torch
+
+    ref = torch.linalg.eigvalsh(gram_d.double())
+    ref_all = torch.sort(torch.cat([ref.new_zeros(n), ref])).values
+    err = (evals.double() - ref_all).abs()
+    tol = ATOL * ref_all.abs().max() + RTOL * ref_all.abs()
+    ratio, bad, zeros = (err / tol).max().item(), int((err > tol).sum()), int((evals == 0).sum())
+    print(f"{label}: {evals.numel()} eigenvalues vs float64 of its deflated Gram "
+          f"{tuple(gram_d.shape)}: max err/tol {ratio:.3f}, {bad}/{evals.numel()} violations, "
+          f"{zeros} exact zeros", flush=True)
+    check(bool(torch.isfinite(evals).all()), f"{label}: non-finite eigenvalues")
+    check(bad == 0, f"{label}: {bad} violations of float64")
+    check(zeros == n, f"{label}: {zeros} exact zeros, expected {n}")
+
+
+def phase_generic(jc):
+    """The reference classes on a plain model function (the generic
+    V-transform) at N=128 with the headline settings; engine agreement and
+    the Monte-Carlo gates.  Returns the launches per class."""
+    import torch
+
+    import vivit_tpu_torch as vtt
+    from vivit_tpu_torch import deflate, eigdc
+    from vivit_tpu_torch.ggn import ggn_sqrt_vt
+    from vivit_tpu_torch.gram import gram_matrix
+    from vivit_tpu_torch.precision import _PRECISIONS, full_f32
+    from vivit_tpu_torch.structured import gram_matrix_mixed
+    from vivit_tpu_torch.tapped import tapped_ggn_sqrt_vt
+
+    model_fn, params = generic_model()
+    paths = list(params)
+    X, y = port_batch(N)
+    loss = vtt.CrossEntropyLoss("mean")
+    settings = dict(eig_backend="dc", **HEADLINE)
+    launches = {}
+
+    # EigvalshComputation: the dc chain path in eigenvalue mode (2 windows)
+    label = f"EigvalshComputation N={N} (model function)"
+    eigvalsh = vtt.EigvalshComputation(model_fn, loss, **settings)
+
+    def eigvalsh_call():
+        return eigvalsh.compute(X, y, params=params)[0]
+
+    untripped(eigvalsh_call, label)  # warm-up
+    with recorded(deflate, "deflate_gram") as grams:
+        (evals, batches), launches[label] = launches_of(
+            jc, lambda: recording_eigh(lambda: untripped(eigvalsh_call, label)))
+    gram_d = grams[0][1]
+    with full_f32():
+        _, info = eigdc.eigvalsh_dc(gram_d, return_info=True)
+    print(f"{label}: Jacobi launches {launches[label]}, guard tripped "
+          f"{bool(info['tripped'])} (bound {float(info['bound']):.2e}, orth "
+          f"{float(info['orth']):.2e})", flush=True)
+    check(launches[label] == 2, f"{label}: expected 2 Jacobi launches, got {launches[label]}")
+    check(not bool(info["tripped"]), f"{label}: the eigdc guard tripped")
+    check_spectrum(label, evals, gram_d, N)
+    win = time_windows(jc, batches, label)
+    print(f"{label}, its {launches[label]} window launches: kernel {win[0]:.4f} ms, "
+          f"torch.linalg.eigh {win[1]:.4f} ms, bound {win[2]:.6f} ms, plain "
+          f"{win[3]:.3f} ms", flush=True)
+
+    # EighComputation: the dc chain path in eigenvector mode (6 windows)
+    label = f"EighComputation N={N} (model function, keep_top_k({TOP_K}))"
+    eigh = vtt.EighComputation(model_fn, loss, **settings)
+    groups = [{"params": paths, "criterion": vtt.keep_top_k(TOP_K)}]
+
+    def eigh_call():
+        return eigh.compute(X, y, groups, params=params)
+
+    untripped(eigh_call, label)  # warm-up
+    with recorded(deflate, "deflate_gram") as grams:
+        (((ev, leaves),), batches), launches[label] = launches_of(
+            jc, lambda: recording_eigh(lambda: untripped(eigh_call, label)))
+    info = eigh.get_eig_info(groups[0])
+    print(f"{label}: Jacobi launches {launches[label]}, guard tripped "
+          f"{bool(info['tripped'])} (bound {float(info['bound']):.2e}, orth "
+          f"{float(info['orth']):.2e}), top-{TOP_K} {[round(v, 6) for v in ev.tolist()]}",
+          flush=True)
+    check(launches[label] == 6, f"{label}: expected 6 Jacobi launches, got {launches[label]}")
+    check(not bool(info["tripped"]), f"{label}: the eigdc guard tripped")
+    check(ev.shape == (TOP_K,), f"{label}: eigenvalues {ev}")
+    gram_d = grams[0][1]
+    with full_f32():
+        vt = ggn_sqrt_vt(model_fn, loss, params, X, y)
+        w = deflate.ce_null_complement(deflate.ce_probs(model_fn, X, params))
+        ev_d, V_d = eigdc.eigh_dc(gram_d)
+    check_eigenpairs(label, ev, leaves, paths, vt, w, gram_d, ev_d, V_d)
+    win = time_windows(jc, batches, label)
+    print(f"{label}, its {launches[label]} window launches: kernel {win[0]:.4f} ms, "
+          f"torch.linalg.eigh {win[1]:.4f} ms, bound {win[2]:.6f} ms, plain "
+          f"{win[3]:.3f} ms", flush=True)
+
+    # engine agreement: the generic and the tapped f32 Grams of the same batch
+    with full_f32():
+        g_gen = gram_matrix(vt)
+        g_tap = gram_matrix_mixed(tapped_ggn_sqrt_vt(port_model(), loss, X, y))
+    rel = ((g_gen - g_tap).norm() / g_tap.norm()).item()
+    print(f"engine agreement N={N}: generic vs tapped f32 Gram {tuple(g_gen.shape)}, "
+          f"‖ΔG‖_F/‖G‖_F {rel:.3e} (bar {ENGINE_BAR:.0e})", flush=True)
+    check(rel <= ENGINE_BAR, f"engine agreement {rel:.2e} above {ENGINE_BAR:.0e}")
+    del vt, g_gen, g_tap
+
+    # Monte-Carlo factors at full width: draws of (key, sample id) only
+    with full_f32():
+        f = model_fn(params, X)
+        draws = loss.mc_draws(f, y, 1, 0, range(N))
+        draws_sub = loss.mc_draws(f[:N // 2], y[:N // 2], 1, 0, range(N // 2))
+        plain = [ggn_sqrt_vt(model_fn, loss, params, X, y, mc_samples=1, key=0)
+                 for _ in range(2)]
+        plain_diff = max((plain[0][k] - plain[1][k]).abs().max().item() for k in plain[0])
+        del plain
+        with deterministic_cudnn():
+            a, b = (ggn_sqrt_vt(model_fn, loss, params, X, y, mc_samples=1, key=0)
+                    for _ in range(2))
+            sub = ggn_sqrt_vt(model_fn, loss, params, X, y, mc_samples=1, key=0,
+                              subsampling=range(N // 2))
+    equal = all(torch.equal(a[k], b[k]) for k in a)
+    sub_err = max(((a[k][:, :N // 2] * 2 ** 0.5 - sub[k]).abs().max() / a[k].abs().max()).item()
+                  for k in a)
+    draws_equal = torch.equal(draws[:N // 2], draws_sub)
+    print(f"Monte-Carlo factors N={N} (mc_samples=1, key=0): two calls bit-equal "
+          f"{equal} under deterministic cuDNN (without: max|Δ| {plain_diff:.3e}); the 64-sample "
+          f"sub-batch's draws equal the full batch's {draws_equal}, its columns ×√2 vs "
+          f"the full batch's: max rel err {sub_err:.3e} (bar {MC_SUB_RTOL:.0e})", flush=True)
+    check(equal, "Monte-Carlo V-transform: two calls differ")
+    check(draws_equal, "Monte-Carlo draws depend on the batch")
+    check(sub_err <= MC_SUB_RTOL, f"Monte-Carlo sub-batch columns off by {sub_err:.2e}")
+    del a, b, sub
+
+    # times, stages, peak memory, one profiled call
+    for name, call in (("EigvalshComputation", eigvalsh_call), ("EighComputation", eigh_call)):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        call()
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        print(f"{name} N={N} (model function): {host_ms(call, reps=5):.3f} ms median of 5 "
+              f"(host clock); peak memory {peak:.3f} GiB above the "
+              f"{base / 2 ** 30:.3f} GiB held before the call", flush=True)
+    module = port_model()
+
+    def gram_stage(vt):
+        gram = gram_matrix(vt, precision=_PRECISIONS["bf16"])
+        w = deflate.ce_null_complement(deflate.ce_probs(model_fn, X, params))
+        return vt, w, deflate.deflate_gram(gram, w)
+
+    def solve_stage(state):
+        vt, w, gram_d = state
+        return vt, w, eigdc.eigh_dc(gram_d)[1][:, -TOP_K:]
+
+    def backproject_stage(state):
+        from vivit_tpu_torch.linalg.eigh import backproject
+
+        vt, w, vecs = state
+        return backproject(vt, deflate.lift_gram_vecs(vecs, w), None, paths)
+
+    stages = stage_ms([
+        ("generic V-transform", lambda _: ggn_sqrt_vt(model_fn, loss, params, X, y)),
+        ("Gram (bf16) and Gram-level deflation", gram_stage),
+        ("eigensolve (dc, eigenvectors)", solve_stage),
+        ("lift and back-projection", backproject_stage)])
+    print(f"EighComputation N={N} stages (CUDA events, median of 3): {stages}", flush=True)
+    stages = stage_ms([
+        ("tapped V-transform (the same batch, nn.Module)",
+         lambda _: tapped_ggn_sqrt_vt(module, loss, X, y)),
+        ("eigensolve (dc, eigenvalues, the deflated Gram)",
+         lambda _: eigdc.eigvalsh_dc(gram_d))])
+    print(f"N={N} stages (CUDA events, median of 3): {stages}", flush=True)
+    print(f"profiled call: EighComputation N={N} (model function)", flush=True)
+    profile_step(eigh_call)
+    return launches
+
+
 def main():
     import torch
 
@@ -1074,6 +1298,8 @@ def main():
         large, large_launches, _, _ = phase_eigenpairs(jc, model, N_LARGE, 0)
         phase_times(jc, model, small, large, spectrum)
         newton_launches = phase_newton(jc, model)
+        del model
+        generic_launches = phase_generic(jc)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAIL: {exc}", file=sys.stderr)
         return 1
@@ -1085,7 +1311,8 @@ def main():
         f"eigvalsh_structured N={N_LARGE}": spectrum_launches,
         f"eigh_topk N={N_LARGE}": large_launches,
         f"newton_step_structured N={N} (lobpcg)": newton_launches["lobpcg"],
-        f"newton_step_structured N={N} (dc)": newton_launches["dc"]}), flush=True)
+        f"newton_step_structured N={N} (dc)": newton_launches["dc"],
+        **generic_launches}), flush=True)
 
     t = [timing[s] for s in HEADLINE_SHAPES]
     kernels = [{

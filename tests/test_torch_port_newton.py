@@ -210,6 +210,41 @@ def test_newton_step_matches_jax(models, case):
     _assert_step(got, want, _port_paths(model), atol)
 
 
+@pytest.mark.parametrize("case", ["vjp", "mc", "function"])
+def test_newton_step_engines_match_jax(models, case):
+    """What needs the generic engine, on full-width 3c3d at N=6: the
+    structured step with ``engine="vjp"`` and with Monte-Carlo factors
+    (the JAX package's draws replayed) against the JAX package's, and
+    ``newton_step_topk`` on a plain model function against the JAX
+    package's function form."""
+    from tests.test_torch_port_ggn import _Replay, jax_draws
+    from vivit_tpu_torch import newton_step_topk
+    from vivit_tpu_torch.engines import forward_fn, module_params
+
+    fmod, fvars, model = models
+    X, y = _batch(6, seed=3)
+    jloss = vt.CrossEntropyLoss("mean")
+    kw = dict(engine="vjp") if case == "vjp" else dict(mc_samples_ggn=2) if case == "mc" else {}
+    if case == "function":
+        want = jax.jit(lambda p, X, y: vt.newton_step_topk(
+            lambda q, x: fmod.apply({"params": q}, x), jloss, p, X, y, 10, damping=0.5))(
+            fvars["params"], jnp.asarray(X), jnp.asarray(y))
+        got = newton_step_topk(forward_fn(model), CrossEntropyLoss("mean"), X, y, 10,
+                               damping=0.5, params=module_params(model), device="cpu")
+    else:
+        want = jax.jit(lambda v, X, y, k: jax_newton_step(
+            fmod, v, jloss, X, y, 10, damping=0.5, key=k, **kw))(
+            fvars, jnp.asarray(X), jnp.asarray(y), jax.random.PRNGKey(2))
+        loss = CrossEntropyLoss("mean")
+        if case == "mc":
+            loss = _Replay(loss, jax_draws(jloss, lambda p, x: fmod.apply({"params": p}, x),
+                                           fvars["params"], jnp.asarray(X), jnp.asarray(y),
+                                           2, 2))
+        got = newton_step_structured(model, loss, X, y, 10, damping=0.5, key=2,
+                                     device="cpu", **kw)
+    _assert_step(got, _to_port(fvars, want, stacked=False), _port_paths(model), NEWTON_ATOL)
+
+
 def test_newton_step_errors(models):
     model = models[2]
     X, y = _batch(2)
@@ -219,10 +254,13 @@ def test_newton_step_errors(models):
     with pytest.raises(ValueError, match="CrossEntropyLoss only"):
         newton_step_structured(model, Loss("mean"), *args, deflate_ce_null=True,
                                device="cpu")
-    for kw in (dict(mc_samples_ggn=4), dict(engine="vjp")):
-        with pytest.raises(NotImplementedError, match="queue 1 item 2"):
-            newton_step_structured(model, CrossEntropyLoss(), *args, device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="queue 1 item 2"):
+    with pytest.raises(ValueError, match="exact factors"):
+        newton_step_structured(model, CrossEntropyLoss(), *args, mc_samples_ggn=4,
+                               deflate_ce_null=True, device="cpu")
+    with pytest.raises(ValueError, match="key"):
+        newton_step_structured(model, CrossEntropyLoss(), *args, mc_samples_ggn=4,
+                               device="cpu")
+    with pytest.raises(TypeError, match="newton_step_topk"):
         newton_step_structured(lambda p, x: x, CrossEntropyLoss(), *args, device="cpu")
     with pytest.raises(ValueError, match="engine"):
         newton_step_structured(model, CrossEntropyLoss(), *args, engine="fast",

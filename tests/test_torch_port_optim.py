@@ -20,6 +20,7 @@ import vivit_tpu as vt
 from vivit_tpu.utils.tree import leaf_paths
 
 import vivit_tpu_torch as vtt
+from vivit_tpu_torch.engines import forward_fn, module_params
 from vivit_tpu_torch.linalg.utils import keep_all, keep_nonzero, keep_top_k
 
 C = 3
@@ -273,10 +274,102 @@ def test_class_error_paths(setup):
         derivs.compute(X, y, [{"params": names}])
     with pytest.raises(ValueError, match="unique"):
         vtt.DirectionalDerivativesComputation(model, loss, subsampling_grad=[1, 1])
-    with pytest.raises(NotImplementedError, match="queue 1 item 2"):
-        vtt.DirectionalDerivativesComputation(lambda p, x: x, loss)
-    with pytest.raises(NotImplementedError, match="queue 1 item 2"):
+    # the model forms: a function needs its params, a module brings its own
+    with pytest.raises(ValueError, match="needs params="):
+        vtt.DirectionalDerivativesComputation(lambda p, x: x, loss, device="cpu").compute(
+            X, y, None)
+    with pytest.raises(ValueError, match="brings its own parameters"):
+        vtt.newton_step_topk(model, loss, X, y, 2, params=module_params(model), device="cpu")
+    with pytest.raises(ValueError, match="key"):
         vtt.newton_step_topk(model, loss, X, y, 2, mc_samples_ggn=3, device="cpu")
     # with param_groups=None the derivatives class keeps every direction
     (g, lam), = derivs.compute(X, y, None)
     assert g.shape == (12, 36) and lam.shape == (12, 36)
+
+
+def test_function_form_matches_jax(setup):
+    """A plain model function with its params dict (the generic engine)
+    against the JAX package's function form: ``newton_step_topk`` and both
+    classes."""
+    fmod, variables, model, X, y = setup
+    fn, params = forward_fn(model), module_params(model)
+    jparts, pparts = _groups(variables, True)
+    want = jax.jit(lambda p, X, y: vt.newton_step_topk(
+        _model_fn(fmod), vt.CrossEntropyLoss("mean"), p, X, y, 3, damping=0.5))(
+        variables["params"], jnp.asarray(X), jnp.asarray(y))
+    got = vtt.newton_step_topk(fn, vtt.CrossEntropyLoss("mean"), X, y, 3, damping=0.5,
+                               params=params, device="cpu",
+                               paths=[NAMES[p] for p in leaf_paths(variables["params"])])
+    _assert_steps(got, want, leaf_paths(variables["params"]))
+
+    jgroups = [{"params": p, "criterion": keep_top_k(3)} for p in jparts]
+    pgroups = [{"params": p, "criterion": keep_top_k(3)} for p in pparts]
+    want = vt.DirectionalDerivativesComputation(
+        _model_fn(fmod), vt.CrossEntropyLoss("mean")).compute(
+        variables["params"], jnp.asarray(X), jnp.asarray(y), jgroups)
+    got = vtt.DirectionalDerivativesComputation(fn, vtt.CrossEntropyLoss("mean"),
+                                                device="cpu").compute(X, y, pgroups,
+                                                                      params=params)
+    for (g, lam), (g_j, l_j) in zip(got, want):
+        _assert_gammas(g, g_j)
+        _assert_close(lam, l_j, LAMBDA_TOL)
+
+    damping = vt.constant_damping(0.7)
+    want = vt.DirectionalDampedNewtonComputation(
+        _model_fn(fmod), vt.CrossEntropyLoss("mean")).compute(
+        variables["params"], jnp.asarray(X), jnp.asarray(y),
+        [dict(g, damping=damping) for g in jgroups])
+    got = vtt.DirectionalDampedNewtonComputation(
+        fn, vtt.CrossEntropyLoss("mean"), self_check=True, device="cpu").compute(
+        X, y, [dict(g, damping=vtt.constant_damping(0.7)) for g in pgroups], params=params)
+    for step, step_j, jpaths in zip(got, want, jparts):
+        _assert_steps(step, step_j, jpaths)
+
+
+def test_mc_samples_ggn_matches_jax(setup):
+    """Monte-Carlo GGN factors: the JAX package's draws replayed into the
+    port (``newton_step_topk`` and the derivatives class)."""
+    from tests.test_torch_port_ggn import _Replay, jax_draws
+
+    fmod, variables, model, X, y = setup
+    jloss = vt.CrossEntropyLoss("mean")
+    sub = [1, 2, 3, 5, 6, 8, 10, 11]
+    draws = jax_draws(jloss, _model_fn(fmod), variables["params"], jnp.asarray(X),
+                      jnp.asarray(y), 2, 9)
+    loss = _Replay(vtt.CrossEntropyLoss("mean"), draws)
+    want = jax.jit(lambda p, X, y, k: vt.newton_step_topk(
+        _model_fn(fmod), jloss, p, X, y, 3, damping=0.5, mc_samples_ggn=2, key=k,
+        subsampling_ggn=sub))(variables["params"], jnp.asarray(X), jnp.asarray(y),
+                              jax.random.PRNGKey(9))
+    got = vtt.newton_step_topk(model, loss, X, y, 3, damping=0.5, mc_samples_ggn=2, key=9,
+                               subsampling_ggn=sub, device="cpu",
+                               paths=[NAMES[p] for p in leaf_paths(variables["params"])])
+    _assert_steps(got, want, leaf_paths(variables["params"]))
+
+    jparts, pparts = _groups(variables, False)
+    want = vt.DirectionalDerivativesComputation(fmod, jloss, mc_samples_ggn=2).compute(
+        variables, jnp.asarray(X), jnp.asarray(y),
+        [{"params": jparts[0], "criterion": keep_top_k(3)}], key=jax.random.PRNGKey(9))
+    got = vtt.DirectionalDerivativesComputation(model, loss, mc_samples_ggn=2,
+                                                device="cpu").compute(
+        X, y, [{"params": pparts[0], "criterion": keep_top_k(3)}], key=9)
+    _assert_gammas(got[0][0], want[0][0])
+    _assert_close(got[0][1], want[0][1], LAMBDA_TOL)
+
+
+def test_vjp_engine_matches_jax(setup):
+    """``engine="vjp"`` (the generic engine with factored Linear weights)
+    against the JAX class on the flax module with the same engine."""
+    fmod, variables, model, X, y = setup
+    jparts, pparts = _groups(variables, True)
+    want = vt.DirectionalDampedNewtonComputation(
+        fmod, vt.CrossEntropyLoss("mean"), engine="vjp").compute(
+        variables, jnp.asarray(X), jnp.asarray(y),
+        [{"params": p, "criterion": keep_top_k(4), "damping": vt.constant_damping(0.7)}
+         for p in jparts])
+    got = vtt.DirectionalDampedNewtonComputation(
+        model, vtt.CrossEntropyLoss("mean"), engine="vjp", device="cpu").compute(
+        X, y, [{"params": p, "criterion": keep_top_k(4),
+                "damping": vtt.constant_damping(0.7)} for p in pparts])
+    for step, step_j, jpaths in zip(got, want, jparts):
+        _assert_steps(step, step_j, jpaths)

@@ -254,21 +254,71 @@ def test_bad_settings_raise(models):
                             precision="bf16", device="cpu")
 
 
+def _fallback_grams(flax_module, variables, torch_model, X, y):
+    """The tapped engines' Grams (CE, mean) of a flax module and its PyTorch
+    twin: ``(port leaves, port Gram, JAX Gram)``."""
+    want = jax.jit(lambda v, X, y: jax_gram_matrix_mixed(jax_tapped(
+        flax_module, v, vt.CrossEntropyLoss("mean"), X, y)))(
+        variables, jnp.asarray(X), jnp.asarray(y))
+    with full_f32():
+        vt_ = tapped_ggn_sqrt_vt(torch_model, CrossEntropyLoss("mean"), torch.tensor(X),
+                                 torch.tensor(y))
+        return vt_, gram_matrix_mixed(vt_).numpy(), np.asarray(want)
+
+
 def test_weight_sharing_raises():
+    """A layer applied twice (weight sharing) leaves the tapped fast path
+    for the generic engine, as in the JAX package: the same Gram as the JAX
+    package's tapped engine, which falls back the same way."""
+    import flax.linen as fnn
+
+    class SharedNet(fnn.Module):
+        @fnn.compact
+        def __call__(self, x):
+            dense = fnn.Dense(4)
+            return dense(fnn.relu(dense(x)))
+
+    rng = np.random.default_rng(6)
+    X = rng.normal(size=(3, 4)).astype(np.float32)
+    y = rng.integers(0, 4, size=(3,)).astype(np.int32)
+    variables = SharedNet().init(jax.random.PRNGKey(0), jnp.asarray(X))
     layer = torch.nn.Linear(4, 4)
+    layer.weight.data = torch.tensor(np.asarray(variables["params"]["Dense_0"]["kernel"]).T)
+    layer.bias.data = torch.tensor(np.asarray(variables["params"]["Dense_0"]["bias"]))
     model = torch.nn.Sequential(layer, torch.nn.ReLU(), layer)
-    with pytest.raises(NotImplementedError, match="more than once"):
-        tapped_ggn_sqrt_vt(model, CrossEntropyLoss(), torch.zeros(2, 4),
-                           torch.zeros(2, dtype=torch.long))
+    vt_, got, want = _fallback_grams(SharedNet(), variables, model, X, y)
+    assert all(isinstance(leaf, torch.Tensor) for leaf in vt_.values())
+    assert got.shape == want.shape == (12, 12)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6 * np.abs(want).max())
 
 
 def test_unsupported_layer_raises():
+    """A layer outside the fast-path table (LayerNorm) goes to the generic
+    engine while the Linear before it keeps its factored block: the same
+    Gram as the JAX package's tapped engine."""
+    import flax.linen as fnn
+
+    class NormNet(fnn.Module):
+        @fnn.compact
+        def __call__(self, x):
+            return fnn.LayerNorm()(fnn.Dense(5)(x.reshape(x.shape[0], -1)))
+
+    rng = np.random.default_rng(7)
+    X = rng.normal(size=(2, 2, 2, 3)).astype(np.float32)
+    y = rng.integers(0, 5, size=(2,)).astype(np.int32)
+    variables = NormNet().init(jax.random.PRNGKey(1), jnp.asarray(X))
+    norm = {k: rng.normal(size=(5,)).astype(np.float32) for k in ("scale", "bias")}
+    variables = {"params": {**variables["params"], "LayerNorm_0": norm}}
     model = torch.nn.Sequential(torch.nn.Flatten(), torch.nn.Linear(12, 5),
-                                torch.nn.LayerNorm(5))
-    X = np.zeros((2, 2, 2, 3), np.float32)
-    with pytest.raises(NotImplementedError, match="LayerNorm"):
-        tapped_ggn_sqrt_vt(model, CrossEntropyLoss(), torch.tensor(X),
-                           torch.zeros(2, dtype=torch.long))
+                                torch.nn.LayerNorm(5, eps=1e-6))
+    dense = variables["params"]["Dense_0"]
+    model[1].weight.data = torch.tensor(np.asarray(dense["kernel"]).T)
+    model[1].bias.data = torch.tensor(np.asarray(dense["bias"]))
+    model[2].weight.data, model[2].bias.data = torch.tensor(norm["scale"]), torch.tensor(norm["bias"])
+    vt_, got, want = _fallback_grams(NormNet(), variables, model, X, y)
+    assert isinstance(vt_["1.weight"], DenseFactor)
+    assert isinstance(vt_["2.weight"], torch.Tensor) and vt_["2.weight"].shape == (5, 2, 5)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6 * np.abs(want).max())
 
 
 def test_duplicate_subsampling_raises(models):
@@ -299,6 +349,8 @@ def test_no_device_without_cuda_raises(models):
 def test_import_leaves_jax_out():
     code = ("import sys, vivit_tpu_torch, vivit_tpu_torch.eigdc, "
             "vivit_tpu_torch.convert, vivit_tpu_torch.linalg.eigh, "
+            "vivit_tpu_torch.linalg.eigvalsh, vivit_tpu_torch.engines, "
+            "vivit_tpu_torch.models, vivit_tpu_torch.utils.tree, "
             "vivit_tpu_torch.deflate, vivit_tpu_torch.gram\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
             " or m == 'flax' or m == 'vivit_tpu' or m.startswith('vivit_tpu.')]\n"

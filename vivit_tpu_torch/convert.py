@@ -1,32 +1,51 @@
-"""Weight transfer from the flax layout to the port's modules."""
+"""Weight transfer from the flax layout to the port's modules.
+
+A port model names its flax counterpart's submodules in ``flax_names`` and
+the ``(c, h, w)`` flattens that feed a Dense layer in ``flax_flatten``
+(:mod:`vivit_tpu_torch.models`).  Leaves map by the type of the port
+module:
+
+* ``nn.Linear``: the kernel ``[in, out]`` transposed; after a ``(c, h, w)``
+  flatten its input rows reordered from flax's ``(h, w, c)``;
+* ``nn.Conv2d``: ``[kh, kw, I, O]`` → ``[O, I, kh, kw]``;
+* ``nn.ConvTranspose2d``: ``[kh, kw, I, O]`` → ``[I, O, kh, kw]``, flipped in
+  space (flax correlates with its kernel, PyTorch with the flipped weight);
+* BatchNorm/LayerNorm: ``scale``/``bias`` → ``weight``/``bias``, the
+  ``batch_stats`` ``mean``/``var`` → ``running_mean``/``running_var``.
+"""
+
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
-# flax module name → port module name (CNN3c3d)
-_NAMES = {
-    "Conv_0": "conv0", "Conv_1": "conv1", "Conv_2": "conv2",
-    "Dense_0": "dense0", "Dense_1": "dense1", "Dense_2": "dense2",
-}
-# (channels, height, width) of the flatten that feeds Dense_0 in CNN3c3d
-_FLATTEN_CHW = (128, 3, 3)
+_LEAF_NAMES = {"kernel": "weight", "scale": "weight", "bias": "bias",
+               "mean": "running_mean", "var": "running_var"}
 
 
-def _port_layout(flax_name: str, leaf: str, stacked: np.ndarray) -> torch.Tensor:
+def _kind(module: nn.Module) -> str:
+    if type(module) is nn.Linear:
+        return "dense"
+    if type(module) is nn.ConvTranspose2d:
+        return "conv_transpose"
+    if type(module) is nn.Conv2d:
+        return "conv"
+    return "other"
+
+
+def _port_layout(kind: str, leaf: str, stacked: np.ndarray,
+                 flatten: Optional[Tuple[int, int, int]] = None) -> torch.Tensor:
     """One flax leaf with a leading stack axis, ``[K, *flax shape]`` →
-    ``[K, *port shape]``.
-
-    Conv kernels ``[kh, kw, I, O]`` become ``[O, I, kh, kw]``; Dense kernels
-    ``[in, out]`` are transposed.  The first Dense layer consumes a flatten:
-    flax flattens NHWC in ``(h, w, c)`` order, the port NCHW in ``(c, h, w)``
-    order, so its input rows are reordered.  Biases keep their layout.
-    """
+    ``[K, *port shape]`` (rules in the module docstring)."""
     a = np.array(stacked, np.float32)
     if leaf == "kernel":
-        if a.ndim == 5:
+        if kind == "conv":
             a = a.transpose(0, 4, 3, 1, 2)
-        elif flax_name == "Dense_0":
-            c, h, w = _FLATTEN_CHW
+        elif kind == "conv_transpose":
+            a = a.transpose(0, 3, 4, 1, 2)[..., ::-1, ::-1]
+        elif flatten is not None:
+            c, h, w = flatten
             k, _, out = a.shape
             a = a.reshape(k, h, w, c, out).transpose(0, 4, 3, 1, 2).reshape(k, out, -1)
         else:
@@ -34,28 +53,60 @@ def _port_layout(flax_name: str, leaf: str, stacked: np.ndarray) -> torch.Tensor
     return torch.from_numpy(np.ascontiguousarray(a))
 
 
-def _port_name(flax_name: str, leaf: str) -> str:
-    return f"{_NAMES[flax_name]}.{'weight' if leaf == 'kernel' else 'bias'}"
+def _leaf_target(model: nn.Module, flax_name: str, leaf: str):
+    """``(port name, kind, flatten)`` of one flax leaf."""
+    prefix = model.flax_names[flax_name]
+    kind = _kind(model.get_submodule(prefix))
+    return f"{prefix}.{_LEAF_NAMES[leaf]}", kind, model.flax_flatten.get(flax_name)
+
+
+def state_dict_from_flax(model: nn.Module, variables: dict) -> Dict[str, torch.Tensor]:
+    """flax ``variables`` (``{"params": ..., "batch_stats": ...}``, nested
+    dicts of numpy arrays) → the port model's ``state_dict`` entries."""
+    out = {}
+    for collection in variables.values():
+        for flax_name, leaves in collection.items():
+            for leaf, value in leaves.items():
+                name, kind, flatten = _leaf_target(model, flax_name, leaf)
+                out[name] = _port_layout(kind, leaf, np.asarray(value)[None], flatten)[0]
+    return out
+
+
+def load_flax(model: nn.Module, variables: dict) -> nn.Module:
+    """Load flax ``variables`` into ``model`` (:func:`state_dict_from_flax`);
+    raises if a parameter or buffer other than BatchNorm's
+    ``num_batches_tracked`` is left without a value.  Returns ``model``."""
+    missing, unexpected = model.load_state_dict(state_dict_from_flax(model, variables),
+                                                strict=False)
+    missing = [m for m in missing if not m.endswith("num_batches_tracked")]
+    if missing or unexpected:
+        raise ValueError(f"flax variables do not match the model: missing {missing}, "
+                         f"unexpected {unexpected}")
+    return model
 
 
 def params_from_flax(params_np: dict) -> dict:
     """flax 3c3d params (nested dict of numpy arrays) → a ``state_dict`` for
-    :class:`vivit_tpu_torch.models.CNN3c3d` (layouts as in
-    :func:`_port_layout`)."""
-    return {
-        _port_name(flax_name, leaf): _port_layout(flax_name, leaf, value[None])[0]
-        for flax_name in sorted(params_np)
-        for leaf, value in params_np[flax_name].items()
-    }
+    :class:`vivit_tpu_torch.models.CNN3c3d`."""
+    from vivit_tpu_torch.models import CNN3c3d
+
+    num_classes = np.asarray(params_np["Dense_2"]["kernel"]).shape[-1]
+    return state_dict_from_flax(CNN3c3d(num_classes), {"params": params_np})
 
 
-def leaves_from_flax(leaves: dict) -> dict:
+def leaves_from_flax(leaves: dict, model: Optional[nn.Module] = None) -> dict:
     """Stacked parameter-space vectors in the flax layout, ``{"Dense_1/kernel":
     [K, *flax shape], ...}`` (as the JAX package's ``eigh_topk`` returns
     them, keyed by their paths) → ``{"dense1.weight": [K, *port shape],
-    ...}``, with the layout rules of :func:`params_from_flax`."""
+    ...}`` for ``model`` (default: 3c3d), with the layout rules of
+    :func:`state_dict_from_flax`."""
+    if model is None:
+        from vivit_tpu_torch.models import CNN3c3d
+
+        model = CNN3c3d()
     out = {}
     for path, value in leaves.items():
         flax_name, leaf = path.split("/")
-        out[_port_name(flax_name, leaf)] = _port_layout(flax_name, leaf, value)
+        name, kind, flatten = _leaf_target(model, flax_name, leaf)
+        out[name] = _port_layout(kind, leaf, value, flatten)
     return out

@@ -1,5 +1,5 @@
 """Analytic null-space deflation of the cross-entropy GGN (counterpart of
-``vivit_tpu/deflate.py``; ``deflated_eigvalsh`` is not ported yet).
+``vivit_tpu/deflate.py``).
 
 For exact CE factors ``s_{n,c} = √p_c (e_c − p)`` each sample's factor rows
 satisfy ``Σ_c √p_{n,c} s_{n,c} = 0``, so the ``[CS, CS]`` Gram carries ``S``
@@ -8,10 +8,10 @@ structural zero eigenvalues with known eigenvectors.  Two places use it:
 * factor level (:func:`vivit_tpu_torch.ggn.v_factors`): the factor rows are
   projected onto the complement of ``√p_n`` before the backward, so the
   Gram is ``[(C−1)S, (C−1)S]`` from the start (eigenvalues only);
-* Gram level (:func:`deflate_gram`, :func:`deflated_topk_eigh`,
-  :func:`deflated_eigh`): the full Gram is projected, and eigenvectors are
-  lifted back (:func:`lift_gram_vecs`) to the full Gram's, for
-  back-projection.
+* Gram level (:func:`deflate_gram`, :func:`deflated_eigvalsh`,
+  :func:`deflated_topk_eigh`, :func:`deflated_eigh`): the full Gram is
+  projected, and eigenvectors are lifted back (:func:`lift_gram_vecs`) to
+  the full Gram's, for back-projection.
 
 Gram matrices use the flat index ``c·S + n``.  The projections run in full
 f32.
@@ -49,6 +49,22 @@ def deflate_gram(gram: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         g4 = torch.einsum("cndm,nca->andm", gram.reshape(c, s, c, s), w)
         g4 = torch.einsum("andm,mdb->anbm", g4, w)
     return g4.reshape((c - 1) * s, (c - 1) * s)
+
+
+def deflated_eigvalsh(gram: torch.Tensor, probs: torch.Tensor, *,
+                      backend: str = "xla", return_info: bool = False):
+    """Full ascending spectrum of a CE Gram through exact null deflation:
+    the ``S`` structural zeros as exact ``0.0``, the other ``(C−1)·S``
+    eigenvalues from the deflated Gram (``backend`` as in
+    :func:`vivit_tpu_torch.eig.full_eigh`; ``return_info`` adds its guard
+    info)."""
+    from vivit_tpu_torch.eig import full_eigh
+
+    w = ce_null_complement(probs)
+    evals_d, _, info = full_eigh(deflate_gram(gram, w), backend=backend,
+                                 eigenvectors=False, return_info=True)
+    evals = torch.sort(torch.cat([evals_d.new_zeros(probs.shape[0]), evals_d])).values
+    return (evals, info) if return_info else evals
 
 
 def ce_null_vectors(probs: torch.Tensor) -> torch.Tensor:
@@ -113,17 +129,23 @@ def deflated_topk_eigh(gram: torch.Tensor, probs: torch.Tensor, k: int, *,
     return evals, lift_gram_vecs(evecs_d, w)
 
 
-def ce_probs(module, X: torch.Tensor) -> torch.Tensor:
-    """Softmax probabilities of the model outputs (deflation input)."""
+def ce_probs(model, X: torch.Tensor, params=None) -> torch.Tensor:
+    """Softmax probabilities of the model outputs (deflation input): an
+    ``nn.Module``'s, or ``model(params, X)``'s for a model function."""
     with torch.no_grad():
-        return torch.softmax(module(X), dim=-1)
+        f = model(X) if params is None else model(params, X)
+        return torch.softmax(f, dim=-1)
 
 
-def check_deflatable(loss) -> None:
-    """Raise unless the exact-CE null structure applies (the port computes
-    exact factors only)."""
+def check_deflatable(loss, mc_samples: int = 0) -> None:
+    """Raise unless the exact-CE null structure applies."""
     from vivit_tpu_torch.losses import CrossEntropyLoss
 
+    if mc_samples:
+        raise ValueError(
+            "CE null-space deflation requires exact factors (mc_samples=0): "
+            "MC-sampled loss-Hessian roots carry no per-sample dependence."
+        )
     if not isinstance(loss, CrossEntropyLoss):
         raise ValueError(
             "CE null-space deflation applies to CrossEntropyLoss only "

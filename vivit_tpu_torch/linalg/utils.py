@@ -92,6 +92,27 @@ def kept_indices(criterion, evals: torch.Tensor) -> torch.Tensor:
     return torch.as_tensor(keep, device=evals.device)
 
 
+def start_compute(comp, X, y, params):
+    """The common start of the computation classes' ``compute``: the
+    model's parameters (``params``, required for a model function, or the
+    module's own), ``(X, y)`` on the class's device after checking that the
+    parameters lie there, and the opt-in ``self_check``
+    (:func:`vivit_tpu_torch.utils.checks.check_model_fn`) on the first call.
+    ``comp`` carries ``_model``, ``_device``, ``_self_check`` and
+    ``_self_checked``.  Returns ``(X, y, params)``."""
+    from vivit_tpu_torch.engines import resolve_model
+    from vivit_tpu_torch.utils.device import inputs_on
+
+    model_fn, diff_params = resolve_model(comp._model, params)
+    X, y = inputs_on(comp._model, X, y, comp._device, params=params)
+    if comp._self_check and not comp._self_checked:
+        from vivit_tpu_torch.utils.checks import check_model_fn
+
+        check_model_fn(model_fn, diff_params, X)
+        comp._self_checked = True
+    return X, y, diff_params
+
+
 def warn_if_small(evals: torch.Tensor, threshold: float) -> None:
     """Warn if an eigenvalue's magnitude is below ``threshold`` (one host
     read)."""

@@ -1,5 +1,4 @@
-"""Second-order optimization API (counterpart of ``vivit_tpu/optim/``;
-module form)."""
+"""Second-order optimization API (counterpart of ``vivit_tpu/optim/``)."""
 
 from vivit_tpu_torch.optim.directional_damped_newton import (
     DirectionalDampedNewtonComputation,

@@ -1,5 +1,5 @@
 r"""Directionally damped Newton steps in the GGN eigenbasis (counterpart of
-``vivit_tpu/optim/directional_damped_newton.py``; module form).
+``vivit_tpu/optim/directional_damped_newton.py``).
 
 The step along the ``K`` kept directions is
 
@@ -13,17 +13,16 @@ derivatives and :math:`\delta_k` the damping of direction ``k``.
 from typing import Dict, List, Optional, Sequence
 
 import torch
-from torch import nn
 
 from vivit_tpu_torch.linalg.utils import (
     group_key,
     kept_indices,
     resolve_param_groups,
+    start_compute,
     warn_if_small,
 )
 from vivit_tpu_torch.losses import Loss
 from vivit_tpu_torch.optim.utils import (
-    check_ported,
     derivatives_stage1,
     gammas_lambdas,
     topk_derivatives,
@@ -52,49 +51,54 @@ def newton_step_from_derivatives(
     """Weight the directions in Gram space and back-project the step through
     ``V``: one ``[*param.shape]`` tensor per name in ``paths``.  ``dampings``
     is ``[K]`` or a scalar."""
-    from vivit_tpu_torch.structured import v_mat_prod_mixed
+    from vivit_tpu_torch.engines import v_mat_prod_any
 
     coefficients = (-gammas.mean(dim=0) / (lambdas.mean(dim=0) + dampings)
                     / torch.sqrt(evals_sel))
     v = evecs_sel @ coefficients  # the Gram-space step [CF·S]
-    return [leaf[0] for leaf in v_mat_prod_mixed(vt, v[None, :], paths)]
+    return [leaf[0] for leaf in v_mat_prod_any(vt, v[None, :], paths)]
 
 
 def newton_step_topk(
-    module: nn.Module,
+    model,
     loss: Loss,
     X,
     y,
     k: int,
     damping=1.0,
     *,
+    params: Optional[Dict[str, torch.Tensor]] = None,
     paths: Optional[Sequence[str]] = None,
     subsampling_grad: Optional[Sequence[int]] = None,
     subsampling_ggn: Optional[Sequence[int]] = None,
     mc_samples_ggn: int = 0,
+    key: Optional[int] = None,
     batch_size: Optional[int] = None,
     precision: str = "highest",
     gram_precision: Optional[str] = None,
     solver: str = "eigh",
     lobpcg_iters: int = 100,
     deflate_ce_null: bool = False,
+    engine: str = "tapped",
     device=None,
 ) -> List[torch.Tensor]:
     """Damped Newton step along the top-``k`` GGN directions of the
-    parameters ``paths`` (default: all, in ``named_parameters`` order), one
-    tensor per name.
+    parameters ``paths`` (default: all, in order), one tensor per name.
 
-    ``damping`` is a scalar or a callable ``(evals, gram_evecs, gammas,
-    lambdas) -> δ [k]``; ``solver`` ``"eigh"``, ``"lobpcg"`` or ``"dc"``;
-    ``deflate_ce_null`` (exact CE) runs the top-``k`` on the Gram-level
-    deflated Gram.  ``device`` defaults to the CUDA card.
+    ``model`` is an ``nn.Module`` (``engine`` ``"tapped"`` or ``"vjp"``) or
+    a model function with ``params=``.  ``damping`` is a scalar or a
+    callable ``(evals, gram_evecs, gammas, lambdas) -> δ [k]``; ``solver``
+    ``"eigh"``, ``"lobpcg"`` or ``"dc"``; ``deflate_ce_null`` (exact CE)
+    runs the top-``k`` on the Gram-level deflated Gram;
+    ``mc_samples_ggn``/``key`` select Monte-Carlo GGN factors.  ``device``
+    defaults to the CUDA card.
     """
     vt, paths, evals_sel, evecs_sel, gammas, lambdas = topk_derivatives(
-        module, loss, X, y, k, paths=paths, subsampling_grad=subsampling_grad,
-        subsampling_ggn=subsampling_ggn, mc_samples_ggn=mc_samples_ggn,
-        batch_size=batch_size, precision=precision,
-        gram_precision=gram_precision, solver=solver,
-        lobpcg_iters=lobpcg_iters, deflate_ce_null=deflate_ce_null,
+        model, loss, X, y, k, params=params, paths=paths,
+        subsampling_grad=subsampling_grad, subsampling_ggn=subsampling_ggn,
+        mc_samples_ggn=mc_samples_ggn, key=key, batch_size=batch_size,
+        precision=precision, gram_precision=gram_precision, solver=solver,
+        lobpcg_iters=lobpcg_iters, deflate_ce_null=deflate_ce_null, engine=engine,
         device=device)
     if callable(damping):
         dampings = damping(evals_sel, evecs_sel, gammas, lambdas)
@@ -105,21 +109,25 @@ def newton_step_topk(
 
 
 class DirectionalDampedNewtonComputation:
-    """Damped Newton steps per parameter group (module form).
+    """Damped Newton steps per parameter group.
 
+    The model is an ``nn.Module`` or a model function; ``compute`` takes
+    ``params=`` (required for a model function) and ``key=`` as
+    :class:`~vivit_tpu_torch.linalg.eigvalsh.EigvalshComputation` does.
     ``param_groups`` entries carry ``"params"`` (parameter names),
     ``"criterion"`` (ascending eigenvalues as numpy → indices to keep) and
     ``"damping"`` (``(evals, evecs, gammas, lambdas) -> δ [K]``).  The
     result per group is the Newton step, one tensor per name in the group's
     order.  ``solver``/``k_top`` replace the full Gram eigendecomposition by
     a top-``k_top`` solve (``"eigh"``, ``"lobpcg"``, ``"dc"``); the
-    criterion then sees only those ``k_top`` eigenvalues.  ``device``
-    defaults to the CUDA card.
+    criterion then sees only those ``k_top`` eigenvalues.  ``self_check``
+    runs :func:`vivit_tpu_torch.utils.checks.check_model_fn` on the first
+    ``compute``.  ``device`` defaults to the CUDA card.
     """
 
     def __init__(
         self,
-        module: nn.Module,
+        model,
         loss: Loss,
         subsampling_grad: Optional[Sequence[int]] = None,
         subsampling_ggn: Optional[Sequence[int]] = None,
@@ -134,51 +142,55 @@ class DirectionalDampedNewtonComputation:
         solver: str = "eigh",
         k_top: Optional[int] = None,
         lobpcg_iters: int = 100,
+        self_check: bool = False,
         device=None,
     ):
         check_subsampling_unique(subsampling_grad)
         check_subsampling_unique(subsampling_ggn)
-        check_ported(module, mc_samples_ggn, engine)
         if deflate_ce_null:
             from vivit_tpu_torch.deflate import check_deflatable
 
-            check_deflatable(loss)
+            check_deflatable(loss, mc_samples_ggn)
         if k_top is None and solver != "eigh":
             raise ValueError(
                 "solver != 'eigh' requires k_top (iterative solvers "
                 "compute a top-k eigenbasis, not the full spectrum)."
             )
-        self._module = module
+        self._model = model
         self._loss = loss
         self._stage1 = dict(
             subsampling_grad=subsampling_grad, subsampling_ggn=subsampling_ggn,
-            precision=precision, gram_precision=gram_precision,
-            eig_backend=eig_backend, deflate_ce_null=deflate_ce_null,
-            solver=solver, k_top=k_top, lobpcg_iters=lobpcg_iters)
+            mc_samples_ggn=mc_samples_ggn, precision=precision,
+            gram_precision=gram_precision, eig_backend=eig_backend,
+            deflate_ce_null=deflate_ce_null, engine=engine, solver=solver,
+            k_top=k_top, lobpcg_iters=lobpcg_iters)
         self._subsampling_ggn = subsampling_ggn
+        self._self_check = self_check
+        self._self_checked = False
         self._verbose = verbose
         self._warn_small_eigvals = warn_small_eigvals
         self._precision = precision
         self._device = device
         self._newton_steps: Dict[tuple, List[torch.Tensor]] = {}
 
-    def compute(self, X, y, param_groups: List[Dict]) -> List[List[torch.Tensor]]:
+    def compute(self, X, y, param_groups: List[Dict], *,
+                params: Optional[Dict[str, torch.Tensor]] = None,
+                key: Optional[int] = None) -> List[List[torch.Tensor]]:
         """Run the computation on the batch ``(X, y)``; returns the Newton
         step per group."""
         from vivit_tpu_torch.precision import matmul_precision
-        from vivit_tpu_torch.utils.device import inputs_on
 
-        X, y = inputs_on(self._module, X, y, self._device)
-        names = [name for name, _ in self._module.named_parameters()]
+        X, y, diff_params = start_compute(self, X, y, params)
         param_groups = resolve_param_groups(
-            names, param_groups, required_keys=("params", "criterion", "damping"))
+            diff_params, param_groups, required_keys=("params", "criterion", "damping"))
         group_paths = tuple(tuple(g["params"]) for g in param_groups)
         if self._verbose:
             print(f"DirectionalDampedNewtonComputation: groups {group_paths}")
         s_ggn = (len(self._subsampling_ggn) if self._subsampling_ggn is not None
                  else X.shape[0])
-        vt, per_group = derivatives_stage1(self._module, self._loss, X, y,
-                                           group_paths=group_paths, **self._stage1)
+        vt, per_group = derivatives_stage1(self._model, self._loss, X, y, params=params,
+                                           group_paths=group_paths, key=key,
+                                           **self._stage1)
 
         results = []
         with matmul_precision(self._precision):

@@ -1,5 +1,7 @@
 """Gram-space pipeline shared by the directional-derivative computations
-(counterpart of ``vivit_tpu/optim/utils.py``; module form).
+(counterpart of ``vivit_tpu/optim/utils.py``).  The model is an
+``nn.Module`` or a model function ``model_fn(params, X)`` with a
+``params`` dict (:mod:`vivit_tpu_torch.engines`).
 
 Math (mean reduction, ``ρ = 1/N``):
 
@@ -10,47 +12,25 @@ Math (mean reduction, ``ρ = 1/N``):
 * ``λ[n, k] = e_kᵀ (J_nᵀ H_n J_n) e_k = S_ggn · ‖G̃[(:, n), :] ẽ_k‖² / λ̃_k``.
 """
 
-from typing import Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
-from torch import nn
 
 from vivit_tpu_torch.losses import Loss
 
 
-def check_ported(module, mc_samples_ggn: int = 0, engine: str = "tapped") -> None:
-    """Raise ``NotImplementedError`` for what needs the generic V-transform
-    engine, which is not ported yet (ROADMAP queue 1 item 2): a model given
-    as a function, Monte-Carlo GGN factors, ``engine="vjp"``."""
-    if not isinstance(module, nn.Module):
-        raise NotImplementedError(
-            "the port takes an nn.Module; a model function needs the generic "
-            "V-transform engine, not ported yet (ROADMAP queue 1 item 2)."
-        )
-    if mc_samples_ggn:
-        raise NotImplementedError(
-            "Monte-Carlo GGN factors (mc_samples_ggn > 0) are not ported yet "
-            "(ROADMAP queue 1 item 2)."
-        )
-    if engine == "vjp":
-        raise NotImplementedError(
-            "engine='vjp' is the generic V-transform engine, not ported yet "
-            "(ROADMAP queue 1 item 2)."
-        )
-    if engine != "tapped":
-        raise ValueError(f"Unknown engine {engine!r} (use 'tapped' or 'vjp').")
-
-
 def derivatives_stage1(
-    module: nn.Module,
+    model,
     loss: Loss,
     X: torch.Tensor,
     y: torch.Tensor,
     *,
+    params: Optional[Dict[str, torch.Tensor]] = None,
     group_paths: Sequence[Sequence[str]],
     subsampling_grad: Optional[Sequence[int]] = None,
     subsampling_ggn: Optional[Sequence[int]] = None,
     mc_samples_ggn: int = 0,
+    key: Optional[int] = None,
     batch_size: Optional[int] = None,
     precision: str = "highest",
     gram_precision: Optional[str] = None,
@@ -62,8 +42,11 @@ def derivatives_stage1(
     k_top: Optional[int] = None,
     lobpcg_iters: int = 100,
 ):
-    """Stage 1: ``Vᵀ`` (tapped engine), and for each group of parameter
-    names its Gram, eigenpairs and ``Vᵀ G``.
+    """Stage 1: ``Vᵀ`` (:func:`vivit_tpu_torch.engines.build_vt`: the
+    structured engine of a module, by ``engine``, or the generic engine of
+    a model function; Monte-Carlo factors with ``mc_samples_ggn`` and
+    ``key``), and for each group of parameter names its Gram, eigenpairs
+    and ``Vᵀ G``.
 
     Returns ``(vt, per_group)``, each entry ``(gram [CF·S, CF·S], evals,
     evecs, V_t_g [CF·S, N_grad])``.  The eigenpairs: the full ascending
@@ -71,27 +54,26 @@ def derivatives_stage1(
     the top-``k_top`` by ``solver`` (``"eigh"``, ``"lobpcg"``, ``"dc"``);
     ``None`` with ``compute_eigh=False``.  ``deflate_ce_null`` (exact CE)
     solves on the Gram-level deflated Gram and lifts the vectors; the full
-    Gram is still returned (λ needs it).  ``X``, ``y`` lie on the module's
-    device.
+    Gram is still returned (λ needs it).  ``X``, ``y`` lie on the
+    parameters' device.
     """
     from vivit_tpu_torch.eig import full_eigh, topk_eigh
-    from vivit_tpu_torch.ggn import batch_grad
+    from vivit_tpu_torch.engines import build_vt, gram_any, resolve_model, vt_mat_prod_any
+    from vivit_tpu_torch.ggn import _subsample, batch_grad
     from vivit_tpu_torch.precision import _PRECISIONS, matmul_precision
-    from vivit_tpu_torch.structured import gram_matrix_mixed, vt_mat_prod_mixed
-    from vivit_tpu_torch.tapped import tapped_ggn_sqrt_vt
 
-    check_ported(module, mc_samples_ggn, engine)
     if loss.reduction != "mean":
         raise ValueError(
             "Directional derivatives require reduction='mean' "
             "(same restriction as the reference)."
         )
+    model_fn, fwd_params = resolve_model(model, params)
     N = batch_size if batch_size is not None else X.shape[0]
     with matmul_precision(precision):
-        vt = tapped_ggn_sqrt_vt(module, loss, X, y, subsampling=subsampling_ggn,
-                                batch_size=N)
-        grads = batch_grad(module, loss, X, y, subsampling=subsampling_grad,
-                           batch_size=N)
+        vt = build_vt(model, loss, params, X, y, subsampling=subsampling_ggn,
+                      mc_samples=mc_samples_ggn, key=key, batch_size=N, engine=engine)
+        grads = batch_grad(model, loss, X, y, params=params,
+                           subsampling=subsampling_grad, batch_size=N)
         # undo the 1/N BatchGrad convention: unscaled per-sample gradients ∇ℓ_n
         grads = {name: g * N for name, g in grads.items()}
 
@@ -99,14 +81,12 @@ def derivatives_stage1(
         if deflate_ce_null:
             from vivit_tpu_torch.deflate import ce_probs, check_deflatable
 
-            check_deflatable(loss)
-            Xs = X if subsampling_ggn is None else X[list(subsampling_ggn)]
-            probs = ce_probs(module, Xs)
+            check_deflatable(loss, mc_samples_ggn)
+            probs = ce_probs(model_fn, _subsample(X, y, subsampling_ggn)[0], fwd_params)
 
         per_group = []
         for paths in group_paths:
-            gram = gram_matrix_mixed(vt, paths,
-                                     generic_precision=_PRECISIONS[gram_precision])
+            gram = gram_any(vt, paths, precision=_PRECISIONS[gram_precision])
             if compute_eigh and k_top is not None:
                 if probs is not None:
                     from vivit_tpu_torch.deflate import deflated_topk_eigh
@@ -124,7 +104,7 @@ def derivatives_stage1(
                 evals, evecs = full_eigh(gram, backend=eig_backend)
             else:
                 evals, evecs = None, None
-            v_t_g = vt_mat_prod_mixed(vt, [grads[p] for p in paths], paths)
+            v_t_g = vt_mat_prod_any(vt, [grads[p] for p in paths], paths)
             per_group.append((gram, evals, evecs, v_t_g))
     return vt, tuple(per_group)
 
@@ -152,9 +132,10 @@ def gammas_lambdas(
     return gammas, lambdas
 
 
-def topk_derivatives(module, loss, X, y, k, *, paths, subsampling_grad,
-                     subsampling_ggn, mc_samples_ggn, batch_size, precision,
-                     gram_precision, solver, lobpcg_iters, deflate_ce_null, device):
+def topk_derivatives(model, loss, X, y, k, *, params, paths, subsampling_grad,
+                     subsampling_ggn, mc_samples_ggn, key, batch_size, precision,
+                     gram_precision, solver, lobpcg_iters, deflate_ce_null, engine,
+                     device):
     """The top-``k`` half shared by :func:`~vivit_tpu_torch.optim.newton_step_topk`
     and :func:`~vivit_tpu_torch.optim.directional_derivatives_topk`: stage 1
     without eigensolve, the (optionally deflated) top-``k`` and γ/λ.
@@ -162,33 +143,35 @@ def topk_derivatives(module, loss, X, y, k, *, paths, subsampling_grad,
     Returns ``(vt, paths, evals_sel, evecs_sel, gammas, lambdas)``.
     """
     from vivit_tpu_torch.eig import topk_eigh
+    from vivit_tpu_torch.engines import resolve_model
+    from vivit_tpu_torch.ggn import _subsample
     from vivit_tpu_torch.precision import matmul_precision
     from vivit_tpu_torch.utils.device import inputs_on
 
-    check_ported(module, mc_samples_ggn)
+    model_fn, fwd_params = resolve_model(model, params)
     if deflate_ce_null:
         from vivit_tpu_torch.deflate import check_deflatable
 
-        check_deflatable(loss)
-    X, y = inputs_on(module, X, y, device)
+        check_deflatable(loss, mc_samples_ggn)
+    X, y = inputs_on(model, X, y, device, params=params)
     if paths is None:
-        paths = [name for name, _ in module.named_parameters()]
+        paths = list(fwd_params)
     n = batch_size if batch_size is not None else X.shape[0]
     s_ggn = len(subsampling_ggn) if subsampling_ggn is not None else n
     vt, ((gram, _, _, v_t_g),) = derivatives_stage1(
-        module, loss, X, y, group_paths=(tuple(paths),),
+        model, loss, X, y, params=params, group_paths=(tuple(paths),),
         subsampling_grad=subsampling_grad, subsampling_ggn=subsampling_ggn,
-        batch_size=batch_size, precision=precision,
-        gram_precision=gram_precision, compute_eigh=False,
+        mc_samples_ggn=mc_samples_ggn, key=key, batch_size=batch_size,
+        precision=precision, gram_precision=gram_precision, compute_eigh=False,
+        engine=engine,
     )
     with matmul_precision(precision):
         if deflate_ce_null:
             from vivit_tpu_torch.deflate import ce_probs, deflated_topk_eigh
 
-            Xs = X if subsampling_ggn is None else X[list(subsampling_ggn)]
+            probs = ce_probs(model_fn, _subsample(X, y, subsampling_ggn)[0], fwd_params)
             evals_sel, evecs_sel = deflated_topk_eigh(
-                gram, ce_probs(module, Xs), k, solver=solver,
-                lobpcg_iters=lobpcg_iters)
+                gram, probs, k, solver=solver, lobpcg_iters=lobpcg_iters)
         else:
             evals_sel, evecs_sel = topk_eigh(gram, k, solver=solver,
                                              lobpcg_iters=lobpcg_iters)

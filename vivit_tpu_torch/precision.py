@@ -51,18 +51,23 @@ def matmul_precision(precision):
     return full_f32()
 
 
-def gram(flat: torch.Tensor, operand_dtype=None) -> torch.Tensor:
-    """``flat @ flat.T`` with an f32 result.
+def dot_t(a: torch.Tensor, b: torch.Tensor, operand_dtype=None) -> torch.Tensor:
+    """``a @ b.T`` with an f32 result.
 
     ``operand_dtype=torch.bfloat16`` rounds the operands to bf16 first; the
     products of bf16 values are exact in f32 and the sums stay f32, so the
-    Gram is never rounded to bf16.
+    result is never rounded to bf16.
     """
     if operand_dtype is None:
-        return flat @ flat.T
-    low = flat.to(operand_dtype)
-    if low.is_cuda:
-        return torch.mm(low, low.T, out_dtype=torch.float32)
+        return a @ b.T
+    low_a = a.to(operand_dtype)
+    low_b = low_a if b is a else b.to(operand_dtype)
+    if low_a.is_cuda:
+        return torch.mm(low_a, low_b.T, out_dtype=torch.float32)
     # the CPU has no mixed-dtype matmul: the same arithmetic in f32
-    low = low.float()
-    return low @ low.T
+    return low_a.float() @ low_b.float().T
+
+
+def gram(flat: torch.Tensor, operand_dtype=None) -> torch.Tensor:
+    """``flat @ flat.T`` with an f32 result (:func:`dot_t`)."""
+    return dot_t(flat, flat, operand_dtype)

@@ -1,6 +1,7 @@
 """Structure-exploiting GGN algebra (counterpart of
-``vivit_tpu/structured.py``; the eigenvalue pipeline, the back-projection,
-``Vᵀ``-products and the damped Newton step, module form).
+``vivit_tpu/structured.py``): the structured V-transform of an
+``nn.Module`` (tapped or vjp engine), the mixed Gram, back-projection,
+``Vᵀ``-products, the eigenvalue pipeline and the damped Newton step.
 
 For a Linear weight the ``Vᵀ`` column of sample ``n``, factor ``c`` is the
 outer product ``δ_{c,n} ⊗ z_n``, so its Gram block is the Hadamard product
@@ -52,6 +53,90 @@ class DenseFactor:
         w = torch.einsum("ni,koi->kno", self.z, mat)
         r = torch.einsum("kno,cno->cnk", w, self.delta)
         return r.reshape(self.num_cols, r.shape[-1])
+
+
+def _linear_inputs(module: nn.Module, X: torch.Tensor):
+    """One forward recording each ``nn.Linear``'s input: ``({name: z},
+    repeated)``, ``repeated`` the layers applied more than once (weight
+    sharing), whose recorded input covers only the last call."""
+    captured: Dict[str, torch.Tensor] = {}
+    repeated = set()
+
+    def hook_for(name):
+        def hook(_, inputs, out):
+            if name in captured:
+                repeated.add(name)
+            captured[name] = inputs[0].detach()
+        return hook
+
+    handles = [m.register_forward_hook(hook_for(name))
+               for name, m in module.named_modules() if type(m) is nn.Linear]
+    try:
+        with torch.no_grad():
+            module(X)
+    finally:
+        for h in handles:
+            h.remove()
+    return captured, repeated
+
+
+def structured_ggn_sqrt_vt(
+    module: nn.Module,
+    loss: Loss,
+    X: torch.Tensor,
+    y: torch.Tensor,
+    *,
+    subsampling: Optional[Sequence[int]] = None,
+    mc_samples: int = 0,
+    key: Optional[int] = None,
+    batch_size: Optional[int] = None,
+    sample_ids=None,
+    deflate_ce_null: bool = False,
+    engine: str = "tapped",
+) -> Dict[str, Any]:
+    """Mixed ``Vᵀ`` of a module: ``{name: tensor | DenseFactor | ConvVT}``.
+
+    ``engine="tapped"`` (default): :func:`vivit_tpu_torch.tapped.tapped_ggn_sqrt_vt`.
+    ``engine="vjp"``: the generic engine (:func:`vivit_tpu_torch.ggn.ggn_sqrt_vt`)
+    over every parameter but the weights of Linear layers with a 2-D input,
+    a bias and one call site; those become :class:`DenseFactor` blocks of
+    the recorded input and the generic bias cotangents (the bias cotangent
+    of ``z Wᵀ + b`` is the output cotangent).  The other arguments as in
+    :func:`~vivit_tpu_torch.ggn.ggn_sqrt_vt`.
+    """
+    if engine == "tapped":
+        from vivit_tpu_torch.tapped import tapped_ggn_sqrt_vt
+
+        return tapped_ggn_sqrt_vt(
+            module, loss, X, y, subsampling=subsampling, mc_samples=mc_samples,
+            key=key, batch_size=batch_size, sample_ids=sample_ids,
+            deflate_ce_null=deflate_ce_null)
+    if engine != "vjp":
+        raise ValueError(f"Unknown engine {engine!r} (use 'tapped' or 'vjp').")
+    from vivit_tpu_torch.engines import forward_fn, module_params
+    from vivit_tpu_torch.ggn import _subsample, ggn_sqrt_vt
+    from vivit_tpu_torch.utils.checks import check_subsampling_unique
+
+    check_subsampling_unique(subsampling)
+    inputs, repeated = _linear_inputs(module, _subsample(X, y, subsampling)[0])
+    params = module_params(module)
+    factorable = {}
+    for name, z in inputs.items():
+        prefix = f"{name}." if name else ""
+        if name not in repeated and z.dim() == 2 and prefix + "bias" in params:
+            factorable[prefix + "weight"] = (z, prefix + "bias")
+    diff = {name: p for name, p in params.items() if name not in factorable}
+    model_fn = forward_fn(module)
+
+    def model_fn_partial(d, x):
+        return model_fn({**params, **d}, x)
+
+    vt = ggn_sqrt_vt(model_fn_partial, loss, diff, X, y, subsampling=subsampling,
+                     mc_samples=mc_samples, key=key, batch_size=batch_size,
+                     sample_ids=sample_ids, deflate_ce_null=deflate_ce_null)
+    for weight, (z, bias) in factorable.items():
+        vt[weight] = DenseFactor(z=z, delta=vt[bias])
+    return {name: vt[name] for name in params}
 
 
 def gram_matrix_mixed(
@@ -139,6 +224,7 @@ def newton_step_structured(
     subsampling_grad: Optional[Sequence[int]] = None,
     subsampling_ggn: Optional[Sequence[int]] = None,
     mc_samples_ggn: int = 0,
+    key: Optional[int] = None,
     precision: str = "highest",
     gram_precision: Optional[str] = None,
     solver: str = "eigh",
@@ -153,27 +239,30 @@ def newton_step_structured(
     ``s = Σ_k −γ̄_k / (λ̄_k + δ_k) · e_k`` with the sample means of the
     directional derivatives (:func:`vivit_tpu_torch.optim.utils.gammas_lambdas`)
     and ``damping`` a scalar ``δ`` or a callable ``(evals, gram_evecs,
-    gammas, lambdas) -> δ [k]``.  Steps: the undeflated ``Vᵀ`` (tapped
-    engine) over the ``subsampling_ggn`` samples, the mixed Gram
-    (``gram_precision``), the top-``k`` (``solver`` ``"eigh"``, ``"dc"`` or
-    ``"lobpcg"``; with ``deflate_ce_null`` on the Gram-level deflated Gram,
-    lifted), per-sample gradients over ``subsampling_grad``, ``Vᵀ g``,
-    γ/λ, and the back-projection of the Gram-space step.  ``X`` is NHWC;
-    ``device`` defaults to the CUDA card (``device="cpu"`` runs on the CPU).
-    In module form this is :func:`vivit_tpu_torch.optim.newton_step_topk`
-    over all parameters; ``engine="vjp"`` (the generic engine) is not ported.
+    gammas, lambdas) -> δ [k]``.  Steps: the undeflated ``Vᵀ`` (``engine``
+    ``"tapped"`` or ``"vjp"``; Monte-Carlo factors with ``mc_samples_ggn``
+    and the int ``key``) over the ``subsampling_ggn`` samples, the mixed
+    Gram (``gram_precision``), the top-``k`` (``solver`` ``"eigh"``,
+    ``"dc"`` or ``"lobpcg"``; with ``deflate_ce_null`` on the Gram-level
+    deflated Gram, lifted), per-sample gradients over ``subsampling_grad``,
+    ``Vᵀ g``, γ/λ, and the back-projection of the Gram-space step.  ``X``
+    is NHWC; ``device`` defaults to the CUDA card (``device="cpu"`` runs on
+    the CPU).  This is :func:`vivit_tpu_torch.optim.newton_step_topk` over
+    all parameters of the module.
     """
     from vivit_tpu_torch.optim.directional_damped_newton import newton_step_topk
-    from vivit_tpu_torch.optim.utils import check_ported
 
     if loss.reduction != "mean":
         raise ValueError("Newton step requires reduction='mean'.")
-    check_ported(module, mc_samples_ggn, engine)
+    if not isinstance(module, nn.Module):
+        raise TypeError("newton_step_structured takes an nn.Module; use "
+                        "newton_step_topk(model_fn, ..., params=...) for a model function.")
     return newton_step_topk(
         module, loss, X, y, k, damping, subsampling_grad=subsampling_grad,
-        subsampling_ggn=subsampling_ggn, precision=precision,
-        gram_precision=gram_precision, solver=solver, lobpcg_iters=lobpcg_iters,
-        deflate_ce_null=deflate_ce_null, device=device)
+        subsampling_ggn=subsampling_ggn, mc_samples_ggn=mc_samples_ggn, key=key,
+        precision=precision, gram_precision=gram_precision, solver=solver,
+        lobpcg_iters=lobpcg_iters, deflate_ce_null=deflate_ce_null, engine=engine,
+        device=device)
 
 
 def eigvalsh_structured(
@@ -184,10 +273,13 @@ def eigvalsh_structured(
     *,
     group_paths: Optional[Sequence[Sequence[str]]] = None,
     subsampling: Optional[Sequence[int]] = None,
+    mc_samples: int = 0,
+    key: Optional[int] = None,
     precision: str = "highest",
     gram_precision: Optional[str] = None,
     eig_backend: str = "xla",
     deflate_ce_null: bool = False,
+    engine: str = "tapped",
     return_eig_info: bool = False,
     device=None,
 ):
@@ -202,23 +294,25 @@ def eigvalsh_structured(
     cross-entropy) solves the ``(C−1)·S`` deflated Gram and returns the
     ``S`` structural zeros exactly.  ``eig_backend`` is ``"xla"`` (vendor
     eigensolver) or ``"dc"`` (:mod:`vivit_tpu_torch.eigdc`).
-    ``return_eig_info``: return
-    ``(evals_per_group, infos_per_group)`` with the eigensolver's guard info.
+    ``mc_samples``/``key``: Monte-Carlo factors; ``engine``: ``"tapped"``
+    or ``"vjp"`` (:func:`structured_ggn_sqrt_vt`).  ``return_eig_info``:
+    return ``(evals_per_group, infos_per_group)`` with the eigensolver's
+    guard info.
     """
     from vivit_tpu_torch.eig import full_eigh
     from vivit_tpu_torch.precision import _PRECISIONS, matmul_precision
-    from vivit_tpu_torch.tapped import tapped_ggn_sqrt_vt
     from vivit_tpu_torch.utils.device import inputs_on
 
     if deflate_ce_null:
         from vivit_tpu_torch.deflate import check_deflatable
 
-        check_deflatable(loss)
+        check_deflatable(loss, mc_samples)
     X, y = inputs_on(module, X, y, device)
 
     with matmul_precision(precision):
-        vt = tapped_ggn_sqrt_vt(module, loss, X, y, subsampling=subsampling,
-                                deflate_ce_null=deflate_ce_null)
+        vt = structured_ggn_sqrt_vt(module, loss, X, y, subsampling=subsampling,
+                                    mc_samples=mc_samples, key=key,
+                                    deflate_ce_null=deflate_ce_null, engine=engine)
         if group_paths is None:
             group_paths = (tuple(n for n, _ in module.named_parameters()),)
         s = X.shape[0] if subsampling is None else len(subsampling)

@@ -12,14 +12,17 @@
    ``(z, δ)``:
 
    * Linear weight → :class:`~vivit_tpu_torch.structured.DenseFactor`
-     ``(z, δ)``, never materialized;
-   * Linear bias → ``δ``;
+     ``(z, δ)``, never materialized; with extra input dimensions the
+     Kronecker terms summed over them, materialized;
+   * Linear bias → ``δ`` (summed over extra dimensions);
    * Conv weight → :class:`ConvVT`, one batched patch×cotangent product,
      patches from ``F.unfold`` in channel-major ``(I, kh, kw)`` order;
    * Conv bias → ``δ`` summed over output positions.
 
-A module with parameters outside this table raises ``NotImplementedError``:
-the generic engine is not ported yet.
+Every other parameter (other layer types, grouped or string-padded convs,
+layers applied more than once) goes to the generic engine
+(:func:`vivit_tpu_torch.ggn.ggn_sqrt_vt`) over those parameters alone: the
+result is exact either way, the table is a fast path.
 """
 
 from typing import Any, Dict, Optional, Sequence, Tuple
@@ -28,7 +31,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from vivit_tpu_torch.ggn import v_factors
+from vivit_tpu_torch.ggn import _sample_ids, _subsample, ggn_sqrt_vt, v_factors
 from vivit_tpu_torch.losses import Loss
 from vivit_tpu_torch.utils.checks import check_subsampling_unique
 
@@ -80,20 +83,10 @@ def _conv_supported(m: nn.Conv2d) -> bool:
             and not isinstance(m.padding, str))
 
 
-def _tapped_layers(module: nn.Module) -> Dict[str, nn.Module]:
-    layers = {}
-    for name, m in module.named_modules():
-        if next(m.parameters(recurse=False), None) is None:
-            continue
-        if type(m) is nn.Linear or (type(m) is nn.Conv2d and _conv_supported(m)):
-            layers[name] = m
-        else:
-            raise NotImplementedError(
-                f"layer {name!r} ({type(m).__name__}) is outside the tapped "
-                "fast path (nn.Linear, nn.Conv2d without groups); the generic "
-                "V-transform is not ported yet."
-            )
-    return layers
+def _fast_layers(module: nn.Module) -> Dict[str, nn.Module]:
+    """The layers inside the fast-path table, by module name."""
+    return {name: m for name, m in module.named_modules()
+            if type(m) is nn.Linear or (type(m) is nn.Conv2d and _conv_supported(m))}
 
 
 def tapped_ggn_sqrt_vt(
@@ -103,34 +96,42 @@ def tapped_ggn_sqrt_vt(
     y: torch.Tensor,
     *,
     subsampling: Optional[Sequence[int]] = None,
+    mc_samples: int = 0,
+    key: Optional[int] = None,
     batch_size: Optional[int] = None,
+    sample_ids=None,
     deflate_ce_null: bool = False,
+    column_scale: Optional[float] = None,
 ) -> Dict[str, Any]:
     """Mixed ``Vᵀ`` dict ``{parameter name: tensor | DenseFactor | ConvVT}``.
 
     Tensor leaves carry leading ``[CF', S]`` axes.  ``subsampling`` restricts
     the GGN to those samples (columns rescaled by ``√(N/S)``); ``batch_size``
-    is the ``N`` of the reduction weight (default ``X.shape[0]``).
+    is the ``N`` of the reduction weight (default ``X.shape[0]``);
+    ``mc_samples``, ``key``, ``sample_ids`` and ``column_scale`` as in
+    :func:`vivit_tpu_torch.ggn.ggn_sqrt_vt`, which also builds the blocks
+    of the parameters outside the fast path.
     """
+    from vivit_tpu_torch.engines import forward_fn, module_params
     from vivit_tpu_torch.structured import DenseFactor
 
     check_subsampling_unique(subsampling)
     N = batch_size if batch_size is not None else X.shape[0]
-    if subsampling is not None:
-        idx = torch.as_tensor(list(subsampling), device=X.device)
-        X, y = X[idx], y[idx]
+    ids = _sample_ids(X, subsampling, sample_ids)
+    Xs, ys = _subsample(X, y, subsampling)
 
-    layers = _tapped_layers(module)
+    layers = _fast_layers(module)
     zs: Dict[str, torch.Tensor] = {}
     taps: Dict[str, torch.Tensor] = {}
+    repeated = set()
 
     def hook_for(name):
         def hook(_, inputs, out):
             if name in taps:
-                raise NotImplementedError(
-                    f"layer {name!r} is applied more than once (weight "
-                    "sharing); the generic V-transform is not ported yet."
-                )
+                # weight sharing: the tap holds one call site's cotangent
+                # only, so the layer goes to the generic engine
+                repeated.add(name)
+                return out
             zs[name] = inputs[0].detach()
             taps[name] = torch.zeros_like(out, requires_grad=True)
             return out + taps[name]
@@ -140,38 +141,44 @@ def tapped_ggn_sqrt_vt(
                for name, m in layers.items()]
     try:
         with torch.enable_grad():
-            f = module(X)
+            f = module(Xs)
     finally:
         for h in handles:
             h.remove()
 
-    factors = v_factors(loss, f.detach(), y, batch_size=N,
+    factors = v_factors(loss, f.detach(), ys, batch_size=N, mc_samples=mc_samples,
+                        key=key, sample_ids=ids, column_scale=column_scale,
                         deflate_ce_null=deflate_ce_null)  # [S, CF', C]
     cots = factors.transpose(0, 1)  # [CF', S, C]
     names = list(taps)
     tap_list = [taps[n] for n in names]
     columns = [
         torch.autograd.grad(f, tap_list, grad_outputs=cot,
-                            retain_graph=i + 1 < len(cots))
+                            retain_graph=i + 1 < len(cots), allow_unused=True)
         for i, cot in enumerate(cots)
-    ]
-    deltas = {n: torch.stack([col[j] for col in columns])
-              for j, n in enumerate(names)}  # {name: [CF', S, *out]}
-
+    ] if names else []
     mixed: Dict[str, Any] = {}
-    for name, m in layers.items():
-        z, d = zs[name], deltas[name]
+    for j, name in enumerate(names):
+        if name in repeated:
+            continue
+        m = layers[name]
+        z = zs[name]
+        d = torch.stack([col[j] if col[j] is not None else torch.zeros_like(tap_list[j])
+                         for col in columns])  # [CF', S, *out]
         cf, s = d.shape[:2]
         prefix = f"{name}." if name else ""
         if type(m) is nn.Linear:
-            if z.dim() != 2:
-                raise NotImplementedError(
-                    f"Linear layer {name!r} with extra input dimensions is "
-                    "not ported yet."
-                )
-            mixed[prefix + "weight"] = DenseFactor(z=z, delta=d)
-            if m.bias is not None:
-                mixed[prefix + "bias"] = d
+            if z.dim() == 2:
+                mixed[prefix + "weight"] = DenseFactor(z=z, delta=d)
+                if m.bias is not None:
+                    mixed[prefix + "bias"] = d
+            else:
+                # extra input dimensions: the Kronecker terms summed over them
+                zf = z.reshape(s, -1, z.shape[-1])
+                df = d.reshape(cf, s, -1, d.shape[-1])
+                mixed[prefix + "weight"] = torch.einsum("npi,cnpo->cnoi", zf, df)
+                if m.bias is not None:
+                    mixed[prefix + "bias"] = df.sum(dim=2)
         else:
             patches = F.unfold(z, m.kernel_size, dilation=m.dilation,
                                padding=m.padding, stride=m.stride)  # [S, K, L]
@@ -182,4 +189,19 @@ def tapped_ggn_sqrt_vt(
                 vt.reshape(cf, s, i, kh, kw, o), m.weight.shape)
             if m.bias is not None:
                 mixed[prefix + "bias"] = df.sum(dim=-1)
-    return mixed
+
+    # the generic engine for every other parameter (exactness, not speed)
+    params = module_params(module)
+    leftover = {name: p for name, p in params.items() if name not in mixed}
+    if leftover:
+        model_fn = forward_fn(module)
+
+        def model_fn_partial(diff, x):
+            return model_fn({**params, **diff}, x)
+
+        vt_generic = ggn_sqrt_vt(
+            model_fn_partial, loss, leftover, X, y, subsampling=subsampling,
+            mc_samples=mc_samples, key=key, batch_size=batch_size, sample_ids=ids,
+            column_scale=column_scale, deflate_ce_null=deflate_ce_null)
+        mixed.update(vt_generic)
+    return {name: mixed[name] for name in params}
