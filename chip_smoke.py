@@ -40,7 +40,8 @@ Phases, each printed as it runs:
 6. **N=512 eigenpairs**: ``eigh_topk`` at N=512 (the strip path in
    eigenvector mode), the checks of phase 4.
 7. **Times**: each new entry's call (median of 3 after a warm-up, host
-   clock around a synchronised call) and its stages on CUDA events; one
+   clock around a synchronised call; the N=512 eigenpairs one call) and its
+   stages on CUDA events; one
    profiled N=512 eigenpair call; ``torch.linalg.eigh`` on each batch shape
    the N=512 eigenpair solve hands ``batched_eigh``.
 8. **Newton step**: ``newton_step_structured(k=10, damping=1.0)`` at N=128
@@ -65,8 +66,28 @@ Phases, each printed as it runs:
    (``mc_samples=1, key=0``) bit-equal over two calls under deterministic
    cuDNN and equal, up to the column scale, on a 64-sample sub-batch; call
    times, stages, peak memory and one profiled call.
-10. The launches of each path, a JSON line of the kernels, then
-    ``{"ok": true, "device": ...}`` last.
+10. **Streamed memory mode** (``vivit_tpu_torch.chunked``) on the same
+    model function: the streamed f32 Gram at N=128 against the in-memory
+    one (54 backward passes); ``eigvalsh_streamed`` at N=128 (2 launches,
+    the spectrum against float64 of its own Gram) and N=512 (the strip
+    path, 0 launches, 0/5120 violations, peak memory below the in-memory
+    deflated Vᵀ's 16.50 GB, stages on CUDA events; the streamed and the
+    in-memory f32 Grams and their peaks); ``eigh_topk_streamed`` (6
+    launches, the eigenpair bars) and ``newton_step_streamed`` (6 launches,
+    the float64 pipeline on its own Gram, the deviation from the in-memory
+    step) at N=128, k=10.
+11. **Gram primitives and ``conv_vt_dtype``**: ``gram_sqrt_ggn`` against
+    the generic Gram, ``gram_batch_grad`` (centered and not) against float64
+    Grams of the same gradients, the headline Gram with
+    ``conv_vt_dtype=torch.bfloat16`` bit-equal to the one without.
+12. **Matrix-free**: the GGN and Hessian-vector products at N=128 against
+    float64 (and the GGN product under the default TF32 flags, printed);
+    ``GGNLinearOperator`` over 576 images (its determinism check on the
+    card), ``host_stream`` against the on-device matvec; the device Lanczos
+    (``ncv=128``) on one batch against λmax; the Lanczos density
+    (``ncv=64``, boundaries 0 and ARPACK's λmax) with mass within 5% of 1.
+13. The call times of the new entries, the launches of each path, a JSON
+    line of the kernels, then ``{"ok": true, "device": ...}`` last.
 
 Any failed check exits non-zero.  Without a CUDA device it exits 2 and
 prints no result.
@@ -809,13 +830,15 @@ def phase_times(jc, model, inputs_small, inputs_large, spectrum_inputs):
             vt, w, vecs = state
             return backproject(vt, deflate.lift_gram_vecs(vecs, w), None, paths)
 
+        # N=512: one timed call and one staged call, to keep the script short
+        reps = 1 if n == N_LARGE else 3
         stages = stage_ms([
             ("V-transform", lambda _: tapped_ggn_sqrt_vt(model, loss, X, y)),
             ("Gram (raw, deflated at the Gram level)", gram_stage),
             ("eigensolve", solve_stage),
-            ("lift and back-projection", backproject_stage)])
-        print(f"eigh_topk N={n}: {host_ms(entry):.3f} ms median of 3 (host clock); "
-              f"stages (CUDA events, median of 3): {stages}", flush=True)
+            ("lift and back-projection", backproject_stage)], reps=reps)
+        print(f"eigh_topk N={n}: {host_ms(entry, reps=reps):.3f} ms median of {reps} (host "
+              f"clock); stages (CUDA events, median of {reps}): {stages}", flush=True)
 
     X, y, loss = spectrum_inputs
     n = X.shape[0]
@@ -1263,6 +1286,477 @@ def phase_generic(jc):
     return launches
 
 
+# the in-memory deflated generic Vᵀ of 3c3d at N=512 (9 × 512 × 895,210 f32):
+# the streamed N=512 spectrum's peak must stay below it
+STREAMED_PEAK_BAR = 9 * N_LARGE * 895_210 * 4
+# ‖ΔG‖_F/‖G‖_F of the per-sample-gradient Grams against float64 Grams of
+# the same gradients
+PRODUCT_BAR = 1e-5
+# ‖Δ‖₂/‖ref‖₂ of the f32 matrix-free products (3c3d, N=128, a normal v)
+# against float64: f32 itself is 1.3e-4 (GGN) and 2.8e-4 (Hessian) off on the
+# H100 and 1.9e-4 / 4.7e-4 on the CPU, TF32 convolutions 2.3e-3 (GGN)
+PRODUCT_F64_BAR = 1e-3
+# the host-streamed dataset matvec against the on-device one
+HOST_STREAM_BAR = 1e-6
+# the device Lanczos top Ritz value against λmax of the f32 Gram (the JAX
+# example's bar, examples/example_spectral_density.py, is 5e-2)
+LANCZOS_BAR = 1e-2
+DATASET = [128, 128, 128, 128, 64]
+
+
+@contextmanager
+def counted(owner, name):
+    """Inside the block, count the calls of ``owner.name`` (the yielded
+    list gets one entry per call; nothing of the call is kept)."""
+    calls = []
+    original = getattr(owner, name)
+
+    def wrapper(*args, **kwargs):
+        calls.append(1)
+        return original(*args, **kwargs)
+
+    setattr(owner, name, wrapper)
+    try:
+        yield calls
+    finally:
+        setattr(owner, name, original)
+
+
+@contextmanager
+def timed(owner, name):
+    """Inside the block, CUDA events around every call of ``owner.name``;
+    the yielded list gets each call's ``(start, end)`` events."""
+    import torch
+
+    events = []
+    original = getattr(owner, name)
+
+    def wrapper(*args, **kwargs):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        out = original(*args, **kwargs)
+        end.record()
+        events.append((start, end))
+        return out
+
+    setattr(owner, name, wrapper)
+    try:
+        yield events
+    finally:
+        setattr(owner, name, original)
+
+
+def peak_of(fn):
+    """``(fn(), its peak memory above what was allocated before, in bytes)``."""
+    import torch
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() - base
+
+
+def rel_err(got, want):
+    """‖got − want‖₂/‖want‖₂ over the flattened tensors (or dicts of them),
+    in float64."""
+    import torch
+
+    if isinstance(want, dict):
+        got = torch.cat([got[k].reshape(-1) for k in want])
+        want = torch.cat([w.reshape(-1) for w in want.values()])
+    got, want = got.double(), want.double()
+    return ((got - want).norm() / want.norm()).item()
+
+
+def streamed_gram_of(call):
+    """``(call(), the Gram its ``chunked.gram_streamed`` built)``."""
+    from vivit_tpu_torch import chunked
+
+    with recorded(chunked, "gram_streamed") as grams:
+        out = call()
+    check(len(grams) == 1, f"{len(grams)} streamed Grams, expected 1")
+    gram = grams[0][1]
+    return out, gram[0] if isinstance(gram, tuple) else gram
+
+
+def phase_streamed(jc):
+    """The streamed memory mode on the 3c3d model function: the streamed
+    Gram against the in-memory one, ``eigvalsh_streamed`` at N=128 and
+    N=512 (peak memory, stages), ``eigh_topk_streamed`` and
+    ``newton_step_streamed`` at N=128 against float64 of their own Grams.
+    Returns the launches per path."""
+    import torch
+
+    import vivit_tpu_torch as vtt
+    from vivit_tpu_torch import chunked, deflate, eig, eigdc
+    from vivit_tpu_torch.ggn import ggn_sqrt_vt
+    from vivit_tpu_torch.gram import gram_matrix
+    from vivit_tpu_torch.optim import utils as optim_utils
+    from vivit_tpu_torch.optim.directional_damped_newton import newton_step_from_derivatives
+    from vivit_tpu_torch.precision import full_f32
+
+    model_fn, params = generic_model()
+    paths = list(params)
+    X, y = port_batch(N)
+    loss = vtt.CrossEntropyLoss("mean")
+    settings = dict(eig_backend="dc", device="cuda", **HEADLINE)
+    launches, times = {}, {}
+
+    # the streamed f32 Gram against the in-memory generic one
+    def streamed_f32(X_, y_):
+        with full_f32():
+            return chunked.gram_streamed(model_fn, loss, params, X_, y_, deflate_ce_null=True)
+
+    with counted(chunked, "_vt_single_factor") as slices:
+        g_str = streamed_f32(X, y)
+    with full_f32():
+        g_mem = gram_matrix(ggn_sqrt_vt(model_fn, loss, params, X, y, deflate_ce_null=True))
+    rel = rel_err(g_str, g_mem)
+    print(f"gram_streamed N={N} (f32, deflated {tuple(g_str.shape)}): {len(slices)} backward "
+          f"passes; vs the in-memory generic Gram ‖ΔG‖_F/‖G‖_F {rel:.3e} "
+          f"(bar {ENGINE_BAR:.0e})", flush=True)
+    check(len(slices) == 54, f"gram_streamed: {len(slices)} backward passes, expected 54")
+    check(rel <= ENGINE_BAR, f"gram_streamed: {rel:.2e} off the in-memory Gram")
+    times["gram_streamed N=128 (f32)"] = host_ms(lambda: streamed_f32(X, y))
+    del g_str, g_mem
+
+    # eigvalsh_streamed N=128: the dc chain path, 2 windows
+    label = f"eigvalsh_streamed N={N}"
+
+    def spectrum_small():
+        return chunked.eigvalsh_streamed(model_fn, loss, params, X, y, **settings)[0]
+
+    untripped(spectrum_small, label)  # warm-up
+    ((evals, batches), gram_d), launches[label] = launches_of(jc, lambda: streamed_gram_of(
+        lambda: recording_eigh(lambda: untripped(spectrum_small, label))))
+    with full_f32():
+        _, info = eigdc.eigvalsh_dc(gram_d, return_info=True)
+    print(f"{label}: Jacobi launches {launches[label]}, guard tripped {bool(info['tripped'])} "
+          f"(bound {float(info['bound']):.2e}, orth {float(info['orth']):.2e})", flush=True)
+    check(launches[label] == 2, f"{label}: expected 2 Jacobi launches, got {launches[label]}")
+    check(not bool(info["tripped"]), f"{label}: the eigdc guard tripped")
+    check_spectrum(label, evals, gram_d, N)
+    win = time_windows(jc, batches, label)
+    print(f"{label}, its {launches[label]} window launches: kernel {win[0]:.4f} ms, "
+          f"torch.linalg.eigh {win[1]:.4f} ms, bound {win[2]:.6f} ms, plain "
+          f"{win[3]:.3f} ms", flush=True)
+    times[label] = host_ms(spectrum_small)
+    del gram_d
+
+    # eigh_topk_streamed N=128, k=10: the chain path in eigenvector mode
+    label = f"eigh_topk_streamed N={N}"
+
+    def eigenpairs():
+        return chunked.eigh_topk_streamed(model_fn, loss, params, X, y, TOP_K, **settings)
+
+    untripped(eigenpairs, label)  # warm-up
+    (((ev, leaves), batches), gram_d), launches[label] = launches_of(jc, lambda: streamed_gram_of(
+        lambda: recording_eigh(lambda: untripped(eigenpairs, label))))
+    print(f"{label}: deflated Gram {tuple(gram_d.shape)}, Jacobi launches {launches[label]}, "
+          f"top-{TOP_K} {[round(v, 6) for v in ev.tolist()]}", flush=True)
+    check(launches[label] == 6, f"{label}: expected 6 Jacobi launches, got {launches[label]}")
+    with full_f32():
+        vt = ggn_sqrt_vt(model_fn, loss, params, X, y)
+        w = deflate.ce_null_complement(deflate.ce_probs(model_fn, X, params))
+        ev_d, V_d, info = eigdc.eigh_dc(gram_d, return_info=True)
+    check(not bool(info["tripped"]), f"{label}: the eigdc guard tripped")
+    check_eigenpairs(label, ev, leaves, paths, vt, w, gram_d, ev_d, V_d)
+    del vt, leaves, V_d
+    win = time_windows(jc, batches, label)
+    print(f"{label}, its {launches[label]} window launches: kernel {win[0]:.4f} ms, "
+          f"torch.linalg.eigh {win[1]:.4f} ms, bound {win[2]:.6f} ms, plain "
+          f"{win[3]:.3f} ms", flush=True)
+    times[label] = host_ms(eigenpairs)
+
+    # newton_step_streamed N=128, k=10, damping 1: against the pipeline
+    # in float64 on its own Gram, the vectors through the in-memory V_d
+    label = f"newton_step_streamed N={N}"
+
+    def newton():
+        return chunked.newton_step_streamed(model_fn, loss, params, X, y, TOP_K, damping=1.0,
+                                            **settings)
+
+    untripped(newton, label)  # warm-up
+    with recorded(optim_utils, "gammas_lambdas") as derivs:
+        (step, batches), launches[label] = launches_of(
+            jc, lambda: recording_eigh(lambda: untripped(newton, label)))
+    check(len(derivs) == 1, f"{label}: {len(derivs)} γ/λ calls")
+    (gram_d, _, _, v_t_g, s), _ = derivs[0]
+    with full_f32():
+        vt_d = ggn_sqrt_vt(model_fn, loss, params, X, y, deflate_ce_null=True)
+        ev64, V64 = torch.linalg.eigh(gram_d.double())
+        ev_k, V_k = ev64[-TOP_K:], V64[:, -TOP_K:]
+        gammas_o, lambdas_o = optim_utils.gammas_lambdas(gram_d.double(), ev_k, V_k,
+                                                         v_t_g.double(), s)
+        step_o = newton_step_from_derivatives(vt_d, paths, ev_k.float(), V_k.float(),
+                                              gammas_o.float(), lambdas_o.float(), 1.0)
+    del vt_d, V64
+    ratios = newton_gates("dc", step, derivs[0], (ev64, step_o, gammas_o, lambdas_o), [])
+    in_memory = vtt.newton_step_topk(model_fn, loss, X, y, TOP_K, damping=1.0, params=params,
+                                     solver="dc", device="cuda", **HEADLINE)
+    scale = max(float(t.abs().max()) for t in in_memory)
+    dev = max(float((a - b).abs().max()) for a, b in zip(step, in_memory)) / scale
+    print(f"{label}: Jacobi launches {launches[label]}; against the float64 pipeline on its "
+          "own Gram, max err/tol: " + ", ".join(f"{k} {v:.3f}" for k, (v, _) in ratios.items())
+          + f"; vs the in-memory newton_step_topk (function form, dc): max|Δ|/max|step| "
+          f"{dev:.3e}", flush=True)
+    check(launches[label] == 6, f"{label}: expected 6 Jacobi launches, got {launches[label]}")
+    failed = [f"{k} at {v:.2f} of its bar" for k, (v, gated) in ratios.items()
+              if gated and v > 1.0]
+    check(not failed, f"{label}: " + "; ".join(failed))
+    win = time_windows(jc, batches, label)
+    print(f"{label}, its {launches[label]} window launches: kernel {win[0]:.4f} ms, "
+          f"torch.linalg.eigh {win[1]:.4f} ms, bound {win[2]:.6f} ms, plain "
+          f"{win[3]:.3f} ms", flush=True)
+    times[label] = host_ms(newton)
+    del step, in_memory, step_o, derivs
+
+    # eigvalsh_streamed N=512: the strip path, peak memory, stages
+    n = N_LARGE
+    X5, y5 = port_batch(n)
+    label = f"eigvalsh_streamed N={n}"
+
+    def spectrum_large():
+        return chunked.eigvalsh_streamed(model_fn, loss, params, X5, y5, **settings)[0]
+
+    untripped(spectrum_large, label)  # warm-up
+    (((evals, gram_d), peak), launches[label]) = launches_of(jc, lambda: peak_of(
+        lambda: streamed_gram_of(lambda: untripped(spectrum_large, label))))
+    with full_f32():
+        _, info = eigdc.eigvalsh_dc(gram_d, return_info=True)
+    print(f"{label}: Jacobi launches {launches[label]}, guard tripped {bool(info['tripped'])}, "
+          f"peak memory {peak / 1e9:.3f} GB above what the call started with "
+          f"(bar: the in-memory deflated Vᵀ, {STREAMED_PEAK_BAR / 1e9:.2f} GB)", flush=True)
+    check(launches[label] == 0, f"{label}: expected 0 Jacobi launches, got {launches[label]}")
+    check(not bool(info["tripped"]), f"{label}: the eigdc guard tripped")
+    check(peak < STREAMED_PEAK_BAR, f"{label}: peak {peak / 1e9:.2f} GB")
+    check_spectrum(label, evals, gram_d, n)
+    del gram_d
+    times[label] = host_ms(spectrum_large)
+    with timed(chunked, "_vt_single_factor") as slice_ev, \
+            timed(chunked, "_pair_block") as block_ev, timed(eig, "full_eigh") as eig_ev:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        spectrum_large()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    stage = {name: sum(a.elapsed_time(b) for a, b in ev) for name, ev in
+             (("factor slices", slice_ev), ("pair blocks", block_ev), ("eigensolve", eig_ev))}
+    print(f"{label} stages (CUDA events, one call of {wall:.3f} ms host clock): "
+          f"{len(slice_ev)} factor slices {stage['factor slices']:.3f} ms, "
+          f"{len(block_ev)} pair blocks (bf16 operands) {stage['pair blocks']:.3f} ms, "
+          f"eigensolve (dc, strip) {stage['eigensolve']:.3f} ms", flush=True)
+
+    # the in-memory generic f32 Gram at N=512 against the streamed f32 Gram
+    g_str, peak_str = peak_of(lambda: streamed_f32(X5, y5))
+
+    def in_memory_f32():
+        with full_f32():
+            return gram_matrix(ggn_sqrt_vt(model_fn, loss, params, X5, y5,
+                                           deflate_ce_null=True))
+
+    torch.cuda.empty_cache()
+    g_mem, peak_mem = peak_of(in_memory_f32)
+    rel = rel_err(g_str, g_mem)
+    print(f"N={n} f32 Grams {tuple(g_mem.shape)}: streamed vs in-memory generic "
+          f"‖ΔG‖_F/‖G‖_F {rel:.3e} (bar {ENGINE_BAR:.0e}); peak memory: streamed "
+          f"{peak_str / 1e9:.3f} GB, in memory {peak_mem / 1e9:.3f} GB", flush=True)
+    check(rel <= ENGINE_BAR, f"N={n}: streamed Gram {rel:.2e} off the in-memory one")
+    del g_str, g_mem
+    torch.cuda.empty_cache()
+    return launches, times
+
+
+def phase_extensions():
+    """``gram_sqrt_ggn`` and ``gram_batch_grad`` on the 3c3d model function
+    at N=128; the headline ``eigvalsh_structured`` with
+    ``conv_vt_dtype=torch.bfloat16``.  Returns the call times."""
+    import torch
+
+    import vivit_tpu_torch as vtt
+    from vivit_tpu_torch import extensions
+    from vivit_tpu_torch.ggn import batch_grad, ggn_sqrt_vt
+    from vivit_tpu_torch.gram import gram_matrix, reshape_as_square
+    from vivit_tpu_torch.precision import _PRECISIONS, full_f32
+    from vivit_tpu_torch.structured import gram_matrix_mixed
+    from vivit_tpu_torch.tapped import tapped_ggn_sqrt_vt
+
+    model_fn, params = generic_model()
+    X, y = port_batch(N)
+    loss = vtt.CrossEntropyLoss("mean")
+    times = {}
+
+    def sqrt_ggn():
+        return extensions.gram_sqrt_ggn(model_fn, loss, X, y, params=params, device="cuda")
+
+    gram4 = sqrt_ggn()
+    with full_f32():
+        ref = gram_matrix(ggn_sqrt_vt(model_fn, loss, params, X, y))
+    rel = rel_err(reshape_as_square(gram4), ref)
+    print(f"gram_sqrt_ggn N={N}: {tuple(gram4.shape)}, as a square vs the generic Gram "
+          f"‖ΔG‖_F/‖G‖_F {rel:.3e} (bar {ENGINE_BAR:.0e})", flush=True)
+    check(rel <= ENGINE_BAR, f"gram_sqrt_ggn: {rel:.2e} off the generic Gram")
+    times[f"gram_sqrt_ggn N={N}"] = host_ms(sqrt_ggn)
+    del gram4, ref
+
+    grads = batch_grad(model_fn, loss, X, y, params=params)
+    flat = torch.cat([g.reshape(N, -1) for g in grads.values()], dim=1).double()
+    del grads
+    for center in (False, True):
+        name = "centered_gram_batch_grad" if center else "gram_batch_grad"
+        got = extensions.gram_batch_grad(model_fn, loss, X, y, center=center, params=params,
+                                         device="cuda")
+        f64 = flat - flat.mean(dim=0) if center else flat
+        rel = rel_err(got, f64 @ f64.T)
+        print(f"{name} N={N}: vs the float64 Gram of the same per-sample gradients "
+              f"‖ΔG‖_F/‖G‖_F {rel:.3e} (bar {PRODUCT_BAR:.0e})", flush=True)
+        check(rel <= PRODUCT_BAR, f"{name}: {rel:.2e} off float64")
+        times[f"{name} N={N}"] = host_ms(lambda: extensions.gram_batch_grad(
+            model_fn, loss, X, y, center=center, params=params, device="cuda"))
+    del flat
+
+    # the knob against no knob, under deterministic cuDNN: the default
+    # algorithms of the tapped backward need not repeat a call's last bits
+    model = port_model()
+
+    def headline_gram(dtype):
+        with full_f32():
+            vt = tapped_ggn_sqrt_vt(model, loss, X, y, deflate_ce_null=True,
+                                    conv_vt_dtype=dtype)
+            return gram_matrix_mixed(vt, generic_precision=_PRECISIONS["bf16"])
+
+    repeat = (headline_gram(None) - headline_gram(None)).abs().max().item()
+    with deterministic_cudnn():
+        without, with_knob = headline_gram(None), headline_gram(torch.bfloat16)
+    diff = (with_knob - without).abs().max().item()
+    print(f"eigvalsh_structured N={N} headline Gram with conv_vt_dtype=torch.bfloat16: "
+          f"max|ΔG| {diff} against the Gram without the knob under deterministic cuDNN "
+          f"(two calls without the knob and without deterministic cuDNN: {repeat})",
+          flush=True)
+    check(torch.equal(with_knob, without), f"conv_vt_dtype: the bf16 Gram moved by {diff}")
+    for dtype in (None, torch.bfloat16):
+        times[f"eigvalsh_structured N={N} (conv_vt_dtype={dtype})"] = host_ms(
+            lambda: vtt.eigvalsh_structured(model, loss, X, y, eig_backend="dc",
+                                            conv_vt_dtype=dtype, **HEADLINE))
+    return times
+
+
+def tf32_gvp(model_fn, loss, params, X, y, v):
+    """The GGN-vector product as the port computed it before it entered
+    full f32: under the process's default TF32 flags (cuDNN convolutions in
+    TF32)."""
+    from torch.func import jvp, vjp
+
+    f, jv = jvp(lambda p: model_fn(p, X), (params,), (v,))
+    _, vjp_fn = vjp(lambda p: model_fn(p, X), params)
+    return vjp_fn(loss.hessian_vp(f, y, jv))[0]
+
+
+def phase_matrix_free():
+    """The matrix-free products at N=128 against float64, the dataset
+    operators (576 images), the device Lanczos and the Lanczos density.
+    Returns the times."""
+    import torch
+
+    import vivit_tpu_torch as vtt
+    from vivit_tpu_torch import hessianfree as hf
+    from vivit_tpu_torch.ggn import ggn_vector_product, hessian_vector_product
+    from vivit_tpu_torch.utils.tree import num_params
+
+    model_fn, params = generic_model()
+    X, y = port_batch(N)
+    loss = vtt.CrossEntropyLoss("mean")
+    times = {}
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    v = {k: torch.randn(p.shape, generator=gen, device="cuda") for k, p in params.items()}
+    p64 = {k: p.double() for k, p in params.items()}
+    v64 = {k: t.double() for k, t in v.items()}
+    flags = []
+
+    def recording(p, x):  # the TF32 flags each forward of a product runs under
+        flags.append((torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32))
+        return model_fn(p, x)
+
+    for name, product in (("ggn_vector_product", ggn_vector_product),
+                          ("hessian_vector_product", hessian_vector_product)):
+        flags.clear()
+        got = product(recording, loss, params, X, y, v)
+        ref = product(model_fn, loss, p64, X.double(), y, v64)
+        rel = rel_err(got, ref)
+        line = (f"{name} N={N}: TF32 off in all {len(flags)} forwards "
+                f"{all(f == (False, False) for f in flags)}; vs float64 ‖Δ‖₂/‖ref‖₂ {rel:.3e} "
+                f"(bar {PRODUCT_F64_BAR:.0e})")
+        if product is ggn_vector_product:
+            line += (f"; under the default TF32 flags, as before the products entered "
+                     f"full f32: {rel_err(tf32_gvp(model_fn, loss, params, X, y, v), ref):.3e}")
+        print(line, flush=True)
+        check(flags and all(f == (False, False) for f in flags), f"{name}: TF32 on inside")
+        check(rel <= PRODUCT_F64_BAR, f"{name}: {rel:.2e} off float64")
+        times[f"{name} N={N}"] = host_ms(lambda: product(model_fn, loss, params, X, y, v))
+    del p64, v64, ref
+
+    rng = np.random.default_rng(0)
+    data = [(rng.normal(size=(b, 32, 32, 3)).astype(np.float32),
+             rng.integers(0, NUM_CLASSES, size=(b,)).astype(np.int32)) for b in DATASET]
+    dim = num_params(params)
+    t0 = time.perf_counter()
+    op = hf.GGNLinearOperator(model_fn, loss, params, data, check_deterministic=True,
+                              device="cuda")
+    torch.cuda.synchronize()
+    times["GGNLinearOperator construction with its determinism check"] = (
+        time.perf_counter() - t0) * 1e3
+    dev_op = hf.ggn_operator(model_fn, loss, params, data, device="cuda")
+    host_op = hf.ggn_operator(model_fn, loss, params, data, host_stream=True, device="cuda")
+    vec = torch.randn(dim, generator=gen, device="cuda")
+    rel = rel_err(host_op(vec), dev_op(vec))
+    print(f"GGNLinearOperator on {sum(DATASET)} images ({DATASET}): the determinism check "
+          f"passed on the card; host_stream vs on-device matvec ‖Δ‖₂/‖ref‖₂ {rel:.3e} "
+          f"(bar {HOST_STREAM_BAR:.0e})", flush=True)
+    check(rel <= HOST_STREAM_BAR, f"host_stream matvec {rel:.2e} off the on-device one")
+    times[f"dataset GGN matvec ({sum(DATASET)} images, on the device)"] = cuda_ms(
+        lambda: dev_op(vec), reps=3, warmup=1)
+    times[f"dataset GGN matvec ({sum(DATASET)} images, host_stream)"] = cuda_ms(
+        lambda: host_op(vec), reps=3, warmup=1)
+
+    # the device Lanczos on the one-batch operator against λmax
+    one = hf.ggn_operator(model_fn, loss, params, [(X, y)], device="cuda")
+    ritz, _ = hf.fast_lanczos_jax(one, dim, ncv=128, key=0, device="cuda")
+    lmax = vtt.eigvalsh_structured(port_model(), loss, X, y, eig_backend="dc",
+                                   precision="highest", deflate_ce_null=True)[0][-1]
+    dev = abs(float(ritz[-1]) - float(lmax)) / float(lmax)
+    print(f"fast_lanczos_jax (device loop, ncv=128) on the N={N} operator: top Ritz value "
+          f"{float(ritz[-1]):.6f} vs eigvalsh_structured λmax (f32 Gram) {float(lmax):.6f}, "
+          f"relative deviation {dev:.3e} (bar {LANCZOS_BAR:.0e}; the JAX example's 5e-2)",
+          flush=True)
+    check(dev <= LANCZOS_BAR, f"device Lanczos: top Ritz value {dev:.2e} off λmax")
+    times["fast_lanczos_jax sweep (ncv=128, one batch)"] = host_ms(
+        lambda: hf.fast_lanczos_jax(one, dim, ncv=128, key=0, device="cuda"), reps=1)
+
+    # the Lanczos density of the dataset GGN.  Its boundaries: λmax by ARPACK
+    # and 0, the GGN being PSD of rank ≤ 9·576 in 895,210 dimensions.
+    # approximate_boundaries' "BE" does not converge here: ARPACK's residual
+    # test is relative to the Ritz value, and the bottom ones are ~0
+    from scipy.sparse.linalg import eigsh
+
+    with counted(op, "_matvec") as arpack:
+        t0 = time.perf_counter()
+        (top,) = eigsh(op.as_scipy(), k=1, which="LA", tol=1e-2, return_eigenvectors=False)
+        arpack_ms = (time.perf_counter() - t0) * 1e3
+    bounds = (0.0, float(top))
+    t0 = time.perf_counter()
+    grid, density = hf.lanczos_approximate_spectrum(op, ncv=64, num_points=1024,
+                                                    boundaries=bounds, seed=0)
+    density_ms = (time.perf_counter() - t0) * 1e3
+    mass = float(np.trapezoid(density, grid))
+    print(f"lanczos_approximate_spectrum (ncv=64) on {sum(DATASET)} images: boundaries "
+          f"[0, {bounds[1]:.6f}], λmax by ARPACK in {len(arpack)} matvecs "
+          f"({arpack_ms:.1f} ms); density mass {mass:.4f} ({density_ms:.1f} ms)", flush=True)
+    check(abs(mass - 1.0) <= 0.05, f"Lanczos density mass {mass:.3f}")
+    return times
+
+
 def main():
     import torch
 
@@ -1300,9 +1794,14 @@ def main():
         newton_launches = phase_newton(jc, model)
         del model
         generic_launches = phase_generic(jc)
+        streamed_launches, times = phase_streamed(jc)
+        times.update(phase_extensions())
+        times.update(phase_matrix_free())
     except SmokeFailure as exc:
         print(f"chip_smoke: FAIL: {exc}", file=sys.stderr)
         return 1
+    for name, ms in times.items():
+        print(f"time: {name}: {ms:.3f} ms", flush=True)
 
     print("Jacobi launches per path: " + json.dumps({
         f"eigvalsh_structured N={N}": launches,
@@ -1312,7 +1811,7 @@ def main():
         f"eigh_topk N={N_LARGE}": large_launches,
         f"newton_step_structured N={N} (lobpcg)": newton_launches["lobpcg"],
         f"newton_step_structured N={N} (dc)": newton_launches["dc"],
-        **generic_launches}), flush=True)
+        **generic_launches, **streamed_launches}), flush=True)
 
     t = [timing[s] for s in HEADLINE_SHAPES]
     kernels = [{

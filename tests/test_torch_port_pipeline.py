@@ -360,24 +360,25 @@ def test_import_leaves_jax_out():
 
 
 def test_package_imports_no_jax_source():
-    pkg = os.path.join(REPO, "vivit_tpu_torch")
+    """Neither the port's package, its examples nor ``chip_smoke.py``
+    imports ``jax``, ``jaxlib``, ``flax`` or ``vivit_tpu``."""
+    paths = [os.path.join(REPO, "chip_smoke.py")]
+    for top in ("vivit_tpu_torch", "examples_torch"):
+        for root, _, files in os.walk(os.path.join(REPO, top)):
+            paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    assert len(paths) > 10
     found = []
-    for root, _, files in os.walk(pkg):
-        for fname in files:
-            if not fname.endswith(".py"):
+    for path in paths:
+        with open(path) as fh:
+            tree = ast.parse(fh.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.module:
+                names = [node.module]
+            else:
                 continue
-            path = os.path.join(root, fname)
-            with open(path) as fh:
-                tree = ast.parse(fh.read(), path)
-            for node in ast.walk(tree):
-                if isinstance(node, ast.Import):
-                    names = [a.name for a in node.names]
-                elif isinstance(node, ast.ImportFrom) and node.module:
-                    names = [node.module]
-                else:
-                    continue
-                for name in names:
-                    top = name.split(".")[0]
-                    if top in ("jax", "jaxlib", "flax", "vivit_tpu"):
-                        found.append((path, name))
+            for name in names:
+                if name.split(".")[0] in ("jax", "jaxlib", "flax", "vivit_tpu"):
+                    found.append((path, name))
     assert not found, found

@@ -30,6 +30,13 @@ The port so far covers, for an ``nn.Module`` or a plain model function
   :func:`~vivit_tpu_torch.ggn.batch_grad`, γ/λ), and
   :mod:`~vivit_tpu_torch.optim` (``newton_step_topk``,
   ``directional_derivatives_topk`` and the two computation classes);
+* the streamed memory mode (:mod:`~vivit_tpu_torch.chunked`:
+  ``gram_streamed``, ``eigvalsh_streamed``, ``eigh_topk_streamed``,
+  ``newton_step_streamed``), at most two factor slices of ``Vᵀ`` alive;
+* the matrix-free dataset operators and Lanczos spectral densities
+  (:mod:`~vivit_tpu_torch.hessianfree`), the Gram primitives of the
+  reference's extension hooks (:mod:`~vivit_tpu_torch.extensions`) and the
+  eigenvalue stability helpers of :mod:`~vivit_tpu_torch.eig`;
 * :func:`~vivit_tpu_torch.eigdc.eigh_dc`: the spectral divide-and-conquer
   eigensolver (chain and strip paths, both modes) and
   :func:`~vivit_tpu_torch.eigdc.refine_eigh`, whose window solves run the
@@ -40,6 +47,8 @@ The port so far covers, for an ``nn.Module`` or a plain model function
 Entry points run on the CUDA card unless the caller passes ``device="cpu"``.
 """
 
+from vivit_tpu_torch import deflate, extensions, hessianfree, losses, structured
+from vivit_tpu_torch.chunked import eigvalsh_streamed, gram_streamed
 from vivit_tpu_torch.eig import full_eigh, topk_eigh
 from vivit_tpu_torch.eigdc import eigh_dc, eigvalsh_dc, refine_eigh
 from vivit_tpu_torch.ggn import (
@@ -84,17 +93,24 @@ __all__ = [
     "eigh_topk",
     "eigvalsh",
     "eigvalsh_dc",
+    "eigvalsh_streamed",
     "eigvalsh_structured",
+    "deflate",
+    "extensions",
     "full_eigh",
     "ggn_mat_prod",
     "ggn_sqrt_vt",
     "ggn_vector_product",
+    "gram_streamed",
     "hessian_vector_product",
+    "hessianfree",
     "keep_all",
     "keep_nonzero",
     "keep_top_k",
+    "losses",
     "newton_step_structured",
     "newton_step_topk",
     "refine_eigh",
+    "structured",
     "topk_eigh",
 ]

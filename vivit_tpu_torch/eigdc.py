@@ -53,7 +53,7 @@ they are constants.
 
 import math
 import warnings
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -542,6 +542,8 @@ def eigh_dc(
     H: torch.Tensor,
     *,
     eigenvectors: bool = True,
+    dm_iters: Optional[Tuple[int, int, int]] = None,
+    key: Optional[int] = None,
     generator: Optional[torch.Generator] = None,
     guard: Optional[float] = 1e-4,
     return_info: bool = False,
@@ -550,8 +552,12 @@ def eigh_dc(
     evecs [n, n] or None[, info])``.
 
     ``n ≤ 160`` goes straight to ``torch.linalg.eigh``; ``n < 1536`` runs the
-    chain path and larger ``n`` the strip path.  ``generator`` (on ``H``'s
-    device) seeds the random draws.
+    chain path and larger ``n`` the strip path.  The random draws come from
+    ``generator`` (on ``H``'s device), or from a generator on ``H``'s device
+    seeded with the int ``key`` (default 0); not both.  ``dm_iters``
+    overrides the polish's Davies-Modi iterations before, between and after
+    the windowed sweeps (default: the mode's and path's schedule).  The JAX
+    package's other tuning knobs are module constants here (``README.md``).
 
     ``guard``: threshold of the runtime self-check (perturbation bound of the
     remaining couplings, and orthonormality drift of the significant basis
@@ -572,14 +578,18 @@ def eigh_dc(
                     else (evals, evecs))
         if generator is None:
             generator = torch.Generator(device=H.device)
-            generator.manual_seed(0)
-        return _eigh_dc(H, generator, eigenvectors, guard, return_info)
+            generator.manual_seed(0 if key is None else key)
+        elif key is not None:
+            raise ValueError("eigh_dc takes a key or a generator, not both.")
+        return _eigh_dc(H, generator, eigenvectors, dm_iters, guard, return_info)
 
 
-def _eigh_dc(H, gen, eigenvectors, guard, return_info):
+def _eigh_dc(H, gen, eigenvectors, dm_iters, guard, return_info):
     n = H.shape[0]
     strip_on = n >= _STRIP_MIN
     sched = _schedule(eigenvectors, strip_on)
+    if dm_iters is not None:
+        sched["dm"] = tuple(dm_iters)
     count = torch.tensor(float(n), dtype=_F32, device=H.device)
     if strip_on:
         # the strip's chain must end in wide exact leaves, or a zoom link's
@@ -697,10 +707,12 @@ def eigvalsh_dc(H: torch.Tensor, *, return_info: bool = False, **kwargs):
     return out[0]
 
 
-def refine_eigh(H: torch.Tensor, Q: torch.Tensor, dm_iters=(2, 1)):
+def refine_eigh(H: torch.Tensor, Q: torch.Tensor, key: Optional[int] = None,
+                dm_iters=(2, 1)):
     """Refine an approximate eigenbasis ``Q`` of symmetric ``H``: the polish
     alone (two Newton-Schulz steps, ``dm_iters[0]`` Davies-Modi iterations,
-    one windowed-Jacobi sweep, ``dm_iters[1]`` more).
+    one windowed-Jacobi sweep, ``dm_iters[1]`` more).  ``key`` is accepted
+    as in the JAX package; the port's Davies-Modi iteration draws nothing.
 
     Returns ``(evals ascending, Q_new, residual)``, ``residual`` the relative
     off-diagonal Frobenius norm of ``Q_newᵀ H Q_new`` (~1e-7 from an exact

@@ -66,17 +66,20 @@ def resolve_model(model, params: Optional[Dict[str, torch.Tensor]] = None
     return model, dict(params)
 
 
-def build_vt(model, loss, params, X, y, *, engine: str = "tapped", **kwargs) -> Dict[str, Any]:
+def build_vt(model, loss, params, X, y, *, engine: str = "tapped",
+             conv_vt_dtype: Optional[torch.dtype] = None, **kwargs) -> Dict[str, Any]:
     """The ``Vᵀ`` dict by the engine of the model's form: a module →
     :func:`~vivit_tpu_torch.structured.structured_ggn_sqrt_vt` (mixed dict,
-    ``engine`` honoured, ``params`` unused); a model function →
-    :func:`~vivit_tpu_torch.ggn.ggn_sqrt_vt` (tensor dict, ``engine``
-    ignored).  ``kwargs``: ``subsampling``, ``mc_samples``, ``key``,
-    ``batch_size``, ``sample_ids``, ``deflate_ce_null``."""
+    ``engine`` and ``conv_vt_dtype`` honoured, ``params`` unused); a model
+    function → :func:`~vivit_tpu_torch.ggn.ggn_sqrt_vt` (tensor dict,
+    ``engine`` and ``conv_vt_dtype`` ignored: there is no module structure to
+    find conv layers in).  ``kwargs``: ``subsampling``, ``mc_samples``,
+    ``key``, ``batch_size``, ``sample_ids``, ``deflate_ce_null``."""
     if is_module(model):
         from vivit_tpu_torch.structured import structured_ggn_sqrt_vt
 
-        return structured_ggn_sqrt_vt(model, loss, X, y, engine=engine, **kwargs)
+        return structured_ggn_sqrt_vt(model, loss, X, y, engine=engine,
+                                      conv_vt_dtype=conv_vt_dtype, **kwargs)
     from vivit_tpu_torch.ggn import ggn_sqrt_vt
 
     return ggn_sqrt_vt(model, loss, params, X, y, **kwargs)

@@ -120,8 +120,6 @@ def ggn_sqrt_vt(
     (``CF − 1`` columns per sample; callers check
     :func:`vivit_tpu_torch.deflate.check_deflatable`).
     """
-    from torch.func import vjp, vmap
-
     check_subsampling_unique(subsampling)
     N = batch_size if batch_size is not None else X.shape[0]
     sample_ids = _sample_ids(X, subsampling, sample_ids)
@@ -133,13 +131,22 @@ def ggn_sqrt_vt(
     factors = v_factors(loss, f, ys, batch_size=N, mc_samples=mc_samples, key=key,
                         sample_ids=sample_ids, column_scale=column_scale,
                         deflate_ce_null=deflate_ce_null)  # [S, CF', C]
-
-    def sample_columns(x_n, rows):
-        _, vjp_fn = vjp(lambda p: model_fn(p, x_n[None])[0], params)
-        return vmap(vjp_fn)(rows)[0]  # {name: [CF', *shape]}
-
-    columns = vmap(sample_columns)(Xs, factors)  # {name: [S, CF', *shape]}
+    columns = pullback(model_fn, params, Xs, factors)  # {name: [S, CF', *shape]}
     return {name: c.transpose(0, 1).contiguous() for name, c in columns.items()}
+
+
+def pullback(model_fn: ModelFn, params: Dict[str, torch.Tensor], Xs: torch.Tensor,
+             rows: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """The columns ``J_nᵀ s_{n,c}`` of given factor rows ``[S, CF, C]`` as
+    ``{name: [S, CF, *shape]}``: ``vmap`` over samples of {one vjp of the
+    one-sample forward; ``vmap(vjp_fn)`` over that sample's rows}."""
+    from torch.func import vjp, vmap
+
+    def sample_columns(x_n, rows_n):
+        _, vjp_fn = vjp(lambda p: model_fn(p, x_n[None])[0], params)
+        return vmap(vjp_fn)(rows_n)[0]  # {name: [CF, *shape]}
+
+    return vmap(sample_columns)(Xs, rows)
 
 
 def batch_grad(model, loss: Loss, X: torch.Tensor, y: torch.Tensor, *,
@@ -175,35 +182,42 @@ def batch_grad(model, loss: Loss, X: torch.Tensor, y: torch.Tensor, *,
         return vmap(grad(sample_loss), in_dims=(None, 0, 0))(params, Xs, ys)
 
 
-# Matrix-free curvature products (exact, not through V).
+# Matrix-free curvature products (exact, not through V), in full f32 as the
+# JAX package's are: cuDNN would otherwise run their convolutions in TF32.
 
 
 def ggn_vector_product(model_fn: ModelFn, loss: Loss, params: Dict[str, torch.Tensor],
                        X: torch.Tensor, y: torch.Tensor,
                        v: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     """Exact GGN-vector product ``G v = Jᵀ (∂²L/∂f²) J v``: one jvp, the
-    loss Hessian's product, one vjp (``torch.func``).  ``v`` is a dict over
-    the same names as ``params``."""
+    loss Hessian's product, one vjp (``torch.func``), in full f32.  ``v`` is
+    a dict over the same names as ``params``."""
     from torch.func import jvp, vjp
+
+    from vivit_tpu_torch.precision import full_f32
 
     params = {name: p.detach() for name, p in params.items()}
     v = {name: v[name] for name in params}
-    f, jv = jvp(lambda p: model_fn(p, X), (params,), (v,))
-    hjv = loss.hessian_vp(f, y, jv)
-    _, vjp_fn = vjp(lambda p: model_fn(p, X), params)
-    return vjp_fn(hjv)[0]
+    with full_f32():
+        f, jv = jvp(lambda p: model_fn(p, X), (params,), (v,))
+        hjv = loss.hessian_vp(f, y, jv)
+        _, vjp_fn = vjp(lambda p: model_fn(p, X), params)
+        return vjp_fn(hjv)[0]
 
 
 def hessian_vector_product(model_fn: ModelFn, loss: Loss, params: Dict[str, torch.Tensor],
                            X: torch.Tensor, y: torch.Tensor,
                            v: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     """Exact Hessian-vector product of the total loss, forward over reverse
-    (jvp of grad)."""
+    (jvp of grad), in full f32."""
     from torch.func import grad, jvp
+
+    from vivit_tpu_torch.precision import full_f32
 
     params = {name: p.detach() for name, p in params.items()}
     v = {name: v[name] for name in params}
-    return jvp(grad(lambda p: loss(model_fn(p, X), y)), (params,), (v,))[1]
+    with full_f32():
+        return jvp(grad(lambda p: loss(model_fn(p, X), y)), (params,), (v,))[1]
 
 
 def ggn_mat_prod(model_fn: ModelFn, loss: Loss, params: Dict[str, torch.Tensor],
@@ -211,8 +225,11 @@ def ggn_mat_prod(model_fn: ModelFn, loss: Loss, params: Dict[str, torch.Tensor],
                  subsampling: Optional[Sequence[int]] = None) -> Dict[str, torch.Tensor]:
     """The exact GGN applied to stacked vectors ``{name: [K, *shape]}``;
     with ``subsampling`` the GGN of the sub-batch, with its own reduction
-    weight."""
+    weight.  Full f32."""
     from torch.func import vmap
 
+    from vivit_tpu_torch.precision import full_f32
+
     Xs, ys = _subsample(X, y, subsampling)
-    return vmap(lambda v: ggn_vector_product(model_fn, loss, params, Xs, ys, v))(mat)
+    with full_f32():
+        return vmap(lambda v: ggn_vector_product(model_fn, loss, params, Xs, ys, v))(mat)

@@ -59,6 +59,7 @@ def eigh_topk(
     lobpcg_iters: int = 100,
     deflate_ce_null: bool = False,
     engine: str = "tapped",
+    conv_vt_dtype: Optional[torch.dtype] = None,
     device=None,
 ):
     """Top-``k`` GGN eigenpairs of one parameter group: ``(evals [k]
@@ -74,8 +75,8 @@ def eigh_topk(
     materialized Gram contractions (``"bf16"``).  ``deflate_ce_null``
     (exact cross-entropy) solves the top-``k`` on the deflated ``(C−1)·S``
     Gram and lifts the vectors back; it needs ``k ≤ (C−1)·S``.
-    ``mc_samples``/``key`` select Monte-Carlo factors; ``engine`` applies
-    to a module.
+    ``mc_samples``/``key`` select Monte-Carlo factors; ``engine`` and
+    ``conv_vt_dtype`` (the conv blocks' storage dtype) apply to a module.
     """
     from vivit_tpu_torch.deflate import ce_probs, check_deflatable, deflated_topk_eigh
     from vivit_tpu_torch.eig import topk_eigh
@@ -94,7 +95,7 @@ def eigh_topk(
     with matmul_precision(precision):
         vt = build_vt(model, loss, params, X, y, subsampling=subsampling,
                       mc_samples=mc_samples, key=key, batch_size=batch_size,
-                      engine=engine)
+                      engine=engine, conv_vt_dtype=conv_vt_dtype)
         gram = gram_any(vt, paths, precision=_PRECISIONS[gram_precision])
         if deflate_ce_null:
             probs = ce_probs(model_fn, _subsample(X, y, subsampling)[0], fwd_params)
@@ -106,7 +107,8 @@ def eigh_topk(
 
 
 def _gram_eigh_all(model, loss, X, y, *, params, group_paths, subsampling, mc_samples,
-                   key, gram_precision, eig_backend, deflate_ce_null, engine):
+                   key, gram_precision, eig_backend, deflate_ce_null, engine,
+                   conv_vt_dtype):
     """Stage 1 of :class:`EighComputation`: ``Vᵀ`` and each group's
     ``(evals, evecs, guard info)`` of the (optionally Gram-level deflated)
     Gram.  Factor-level deflation would drop the structural-zero directions
@@ -119,7 +121,8 @@ def _gram_eigh_all(model, loss, X, y, *, params, group_paths, subsampling, mc_sa
 
     model_fn, fwd_params = resolve_model(model, params)
     vt = build_vt(model, loss, params, X, y, subsampling=subsampling,
-                  mc_samples=mc_samples, key=key, engine=engine)
+                  mc_samples=mc_samples, key=key, engine=engine,
+                  conv_vt_dtype=conv_vt_dtype)
     if deflate_ce_null:
         from vivit_tpu_torch.deflate import ce_probs, deflated_eigh
 
@@ -165,6 +168,7 @@ class EighComputation:
         eig_backend: str = "xla",
         deflate_ce_null: bool = False,
         engine: str = "tapped",
+        conv_vt_dtype: Optional[torch.dtype] = None,
         self_check: bool = False,
         device=None,
     ):
@@ -178,7 +182,8 @@ class EighComputation:
         self._stage1 = dict(
             subsampling=None if subsampling is None else tuple(subsampling),
             mc_samples=mc_samples, gram_precision=gram_precision,
-            eig_backend=eig_backend, deflate_ce_null=deflate_ce_null, engine=engine)
+            eig_backend=eig_backend, deflate_ce_null=deflate_ce_null, engine=engine,
+            conv_vt_dtype=conv_vt_dtype)
         self._verbose = verbose
         self._warn_small_eigvals = warn_small_eigvals
         self._precision = precision

@@ -37,6 +37,7 @@ def eigvalsh(
     eig_backend: str = "xla",
     deflate_ce_null: bool = False,
     engine: str = "tapped",
+    conv_vt_dtype: Optional[torch.dtype] = None,
     device=None,
 ):
     """Tuple of ascending eigenvalue tensors, one per group of parameter
@@ -47,8 +48,8 @@ def eigvalsh(
     (``"bf16"``).  ``deflate_ce_null`` (exact CE) solves the ``(C−1)·S``
     deflated Gram and returns the ``S`` structural zeros exactly.
     ``device`` defaults to the CUDA card; the parameters must lie there.
-    ``engine`` and the ``batch_size`` default apply to a module, ``params``
-    and ``batch_size`` to a model function.
+    ``engine``, ``conv_vt_dtype`` and the ``batch_size`` default apply to a
+    module, ``params`` and ``batch_size`` to a model function.
     """
     from vivit_tpu_torch.engines import is_module, resolve_model
 
@@ -60,7 +61,8 @@ def eigvalsh(
             model, loss, X, y, group_paths=group_paths, subsampling=subsampling,
             mc_samples=mc_samples, key=key, precision=precision,
             gram_precision=gram_precision, eig_backend=eig_backend,
-            deflate_ce_null=deflate_ce_null, engine=engine, device=device)
+            deflate_ce_null=deflate_ce_null, engine=engine,
+            conv_vt_dtype=conv_vt_dtype, device=device)
 
     from vivit_tpu_torch.deflate import ce_probs, check_deflatable, deflated_eigvalsh
     from vivit_tpu_torch.eig import full_eigh
@@ -122,6 +124,7 @@ class EigvalshComputation:
         eig_backend: str = "xla",
         deflate_ce_null: bool = False,
         engine: str = "tapped",
+        conv_vt_dtype: Optional[torch.dtype] = None,
         self_check: bool = False,
         device=None,
     ):
@@ -136,7 +139,7 @@ class EigvalshComputation:
             subsampling=None if subsampling is None else tuple(subsampling),
             mc_samples=mc_samples, precision=precision, gram_precision=gram_precision,
             eig_backend=eig_backend, deflate_ce_null=deflate_ce_null, engine=engine,
-            device=device)
+            conv_vt_dtype=conv_vt_dtype, device=device)
         self._verbose = verbose
         self._self_check = self_check
         self._self_checked = False

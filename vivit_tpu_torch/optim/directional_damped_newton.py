@@ -80,6 +80,7 @@ def newton_step_topk(
     lobpcg_iters: int = 100,
     deflate_ce_null: bool = False,
     engine: str = "tapped",
+    conv_vt_dtype: Optional[torch.dtype] = None,
     device=None,
 ) -> List[torch.Tensor]:
     """Damped Newton step along the top-``k`` GGN directions of the
@@ -90,7 +91,8 @@ def newton_step_topk(
     callable ``(evals, gram_evecs, gammas, lambdas) -> δ [k]``; ``solver``
     ``"eigh"``, ``"lobpcg"`` or ``"dc"``; ``deflate_ce_null`` (exact CE)
     runs the top-``k`` on the Gram-level deflated Gram;
-    ``mc_samples_ggn``/``key`` select Monte-Carlo GGN factors.  ``device``
+    ``mc_samples_ggn``/``key`` select Monte-Carlo GGN factors;
+    ``conv_vt_dtype`` stores a module's conv blocks demoted.  ``device``
     defaults to the CUDA card.
     """
     vt, paths, evals_sel, evecs_sel, gammas, lambdas = topk_derivatives(
@@ -99,7 +101,7 @@ def newton_step_topk(
         mc_samples_ggn=mc_samples_ggn, key=key, batch_size=batch_size,
         precision=precision, gram_precision=gram_precision, solver=solver,
         lobpcg_iters=lobpcg_iters, deflate_ce_null=deflate_ce_null, engine=engine,
-        device=device)
+        device=device, conv_vt_dtype=conv_vt_dtype)
     if callable(damping):
         dampings = damping(evals_sel, evecs_sel, gammas, lambdas)
     else:
@@ -139,6 +141,7 @@ class DirectionalDampedNewtonComputation:
         eig_backend: str = "xla",
         deflate_ce_null: bool = False,
         engine: str = "tapped",
+        conv_vt_dtype: Optional[torch.dtype] = None,
         solver: str = "eigh",
         k_top: Optional[int] = None,
         lobpcg_iters: int = 100,
@@ -162,8 +165,8 @@ class DirectionalDampedNewtonComputation:
             subsampling_grad=subsampling_grad, subsampling_ggn=subsampling_ggn,
             mc_samples_ggn=mc_samples_ggn, precision=precision,
             gram_precision=gram_precision, eig_backend=eig_backend,
-            deflate_ce_null=deflate_ce_null, engine=engine, solver=solver,
-            k_top=k_top, lobpcg_iters=lobpcg_iters)
+            deflate_ce_null=deflate_ce_null, engine=engine, conv_vt_dtype=conv_vt_dtype,
+            solver=solver, k_top=k_top, lobpcg_iters=lobpcg_iters)
         self._subsampling_ggn = subsampling_ggn
         self._self_check = self_check
         self._self_checked = False

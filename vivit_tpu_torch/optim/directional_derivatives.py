@@ -88,6 +88,7 @@ class DirectionalDerivativesComputation:
         eig_backend: str = "xla",
         deflate_ce_null: bool = False,
         engine: str = "tapped",
+        conv_vt_dtype: Optional[torch.dtype] = None,
         self_check: bool = False,
         device=None,
     ):
@@ -103,7 +104,7 @@ class DirectionalDerivativesComputation:
             subsampling_grad=subsampling_grad, subsampling_ggn=subsampling_ggn,
             mc_samples_ggn=mc_samples_ggn, precision=precision,
             gram_precision=gram_precision, eig_backend=eig_backend,
-            deflate_ce_null=deflate_ce_null, engine=engine)
+            deflate_ce_null=deflate_ce_null, engine=engine, conv_vt_dtype=conv_vt_dtype)
         self._subsampling_ggn = subsampling_ggn
         self._self_check = self_check
         self._self_checked = False

@@ -38,14 +38,15 @@ def derivatives_stage1(
     eig_backend: str = "xla",
     deflate_ce_null: bool = False,
     engine: str = "tapped",
+    conv_vt_dtype: Optional[torch.dtype] = None,
     solver: str = "eigh",
     k_top: Optional[int] = None,
     lobpcg_iters: int = 100,
 ):
     """Stage 1: ``Vᵀ`` (:func:`vivit_tpu_torch.engines.build_vt`: the
-    structured engine of a module, by ``engine``, or the generic engine of
-    a model function; Monte-Carlo factors with ``mc_samples_ggn`` and
-    ``key``), and for each group of parameter names its Gram, eigenpairs
+    structured engine of a module, by ``engine``, its conv blocks in
+    ``conv_vt_dtype``, or the generic engine of a model function;
+    Monte-Carlo factors with ``mc_samples_ggn`` and ``key``), and for each group of parameter names its Gram, eigenpairs
     and ``Vᵀ G``.
 
     Returns ``(vt, per_group)``, each entry ``(gram [CF·S, CF·S], evals,
@@ -71,7 +72,8 @@ def derivatives_stage1(
     N = batch_size if batch_size is not None else X.shape[0]
     with matmul_precision(precision):
         vt = build_vt(model, loss, params, X, y, subsampling=subsampling_ggn,
-                      mc_samples=mc_samples_ggn, key=key, batch_size=N, engine=engine)
+                      mc_samples=mc_samples_ggn, key=key, batch_size=N, engine=engine,
+                      conv_vt_dtype=conv_vt_dtype)
         grads = batch_grad(model, loss, X, y, params=params,
                            subsampling=subsampling_grad, batch_size=N)
         # undo the 1/N BatchGrad convention: unscaled per-sample gradients ∇ℓ_n
@@ -135,7 +137,7 @@ def gammas_lambdas(
 def topk_derivatives(model, loss, X, y, k, *, params, paths, subsampling_grad,
                      subsampling_ggn, mc_samples_ggn, key, batch_size, precision,
                      gram_precision, solver, lobpcg_iters, deflate_ce_null, engine,
-                     device):
+                     device, conv_vt_dtype=None):
     """The top-``k`` half shared by :func:`~vivit_tpu_torch.optim.newton_step_topk`
     and :func:`~vivit_tpu_torch.optim.directional_derivatives_topk`: stage 1
     without eigensolve, the (optionally deflated) top-``k`` and γ/λ.
@@ -163,7 +165,7 @@ def topk_derivatives(model, loss, X, y, k, *, params, paths, subsampling_grad,
         subsampling_grad=subsampling_grad, subsampling_ggn=subsampling_ggn,
         mc_samples_ggn=mc_samples_ggn, key=key, batch_size=batch_size,
         precision=precision, gram_precision=gram_precision, compute_eigh=False,
-        engine=engine,
+        engine=engine, conv_vt_dtype=conv_vt_dtype,
     )
     with matmul_precision(precision):
         if deflate_ce_null:

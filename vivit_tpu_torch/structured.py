@@ -93,10 +93,13 @@ def structured_ggn_sqrt_vt(
     sample_ids=None,
     deflate_ce_null: bool = False,
     engine: str = "tapped",
+    conv_vt_dtype: Optional[torch.dtype] = None,
 ) -> Dict[str, Any]:
     """Mixed ``Vᵀ`` of a module: ``{name: tensor | DenseFactor | ConvVT}``.
 
-    ``engine="tapped"`` (default): :func:`vivit_tpu_torch.tapped.tapped_ggn_sqrt_vt`.
+    ``engine="tapped"`` (default): :func:`vivit_tpu_torch.tapped.tapped_ggn_sqrt_vt`,
+    its conv blocks stored in ``conv_vt_dtype`` when given (the vjp engine
+    ignores the knob, as in the JAX package).
     ``engine="vjp"``: the generic engine (:func:`vivit_tpu_torch.ggn.ggn_sqrt_vt`)
     over every parameter but the weights of Linear layers with a 2-D input,
     a bias and one call site; those become :class:`DenseFactor` blocks of
@@ -110,7 +113,7 @@ def structured_ggn_sqrt_vt(
         return tapped_ggn_sqrt_vt(
             module, loss, X, y, subsampling=subsampling, mc_samples=mc_samples,
             key=key, batch_size=batch_size, sample_ids=sample_ids,
-            deflate_ce_null=deflate_ce_null)
+            deflate_ce_null=deflate_ce_null, conv_vt_dtype=conv_vt_dtype)
     if engine != "vjp":
         raise ValueError(f"Unknown engine {engine!r} (use 'tapped' or 'vjp').")
     from vivit_tpu_torch.engines import forward_fn, module_params
@@ -231,6 +234,7 @@ def newton_step_structured(
     lobpcg_iters: int = 100,
     deflate_ce_null: bool = False,
     engine: str = "tapped",
+    conv_vt_dtype: Optional[torch.dtype] = None,
     device=None,
 ) -> List[torch.Tensor]:
     """Damped Newton step along the top-``k`` GGN directions, one tensor
@@ -241,7 +245,7 @@ def newton_step_structured(
     and ``damping`` a scalar ``δ`` or a callable ``(evals, gram_evecs,
     gammas, lambdas) -> δ [k]``.  Steps: the undeflated ``Vᵀ`` (``engine``
     ``"tapped"`` or ``"vjp"``; Monte-Carlo factors with ``mc_samples_ggn``
-    and the int ``key``) over the ``subsampling_ggn`` samples, the mixed
+    and the int ``key``; conv blocks stored in ``conv_vt_dtype``) over the ``subsampling_ggn`` samples, the mixed
     Gram (``gram_precision``), the top-``k`` (``solver`` ``"eigh"``,
     ``"dc"`` or ``"lobpcg"``; with ``deflate_ce_null`` on the Gram-level
     deflated Gram, lifted), per-sample gradients over ``subsampling_grad``,
@@ -262,7 +266,7 @@ def newton_step_structured(
         subsampling_ggn=subsampling_ggn, mc_samples_ggn=mc_samples_ggn, key=key,
         precision=precision, gram_precision=gram_precision, solver=solver,
         lobpcg_iters=lobpcg_iters, deflate_ce_null=deflate_ce_null, engine=engine,
-        device=device)
+        conv_vt_dtype=conv_vt_dtype, device=device)
 
 
 def eigvalsh_structured(
@@ -280,6 +284,7 @@ def eigvalsh_structured(
     eig_backend: str = "xla",
     deflate_ce_null: bool = False,
     engine: str = "tapped",
+    conv_vt_dtype: Optional[torch.dtype] = None,
     return_eig_info: bool = False,
     device=None,
 ):
@@ -295,7 +300,9 @@ def eigvalsh_structured(
     ``S`` structural zeros exactly.  ``eig_backend`` is ``"xla"`` (vendor
     eigensolver) or ``"dc"`` (:mod:`vivit_tpu_torch.eigdc`).
     ``mc_samples``/``key``: Monte-Carlo factors; ``engine``: ``"tapped"``
-    or ``"vjp"`` (:func:`structured_ggn_sqrt_vt`).  ``return_eig_info``:
+    or ``"vjp"`` (:func:`structured_ggn_sqrt_vt`); ``conv_vt_dtype``: the
+    conv blocks' storage dtype (``torch.bfloat16`` beside the bf16 Gram
+    gives the same Gram).  ``return_eig_info``:
     return ``(evals_per_group, infos_per_group)`` with the eigensolver's
     guard info.
     """
@@ -312,7 +319,8 @@ def eigvalsh_structured(
     with matmul_precision(precision):
         vt = structured_ggn_sqrt_vt(module, loss, X, y, subsampling=subsampling,
                                     mc_samples=mc_samples, key=key,
-                                    deflate_ce_null=deflate_ce_null, engine=engine)
+                                    deflate_ce_null=deflate_ce_null, engine=engine,
+                                    conv_vt_dtype=conv_vt_dtype)
         if group_paths is None:
             group_paths = (tuple(n for n, _ in module.named_parameters()),)
         s = X.shape[0] if subsampling is None else len(subsampling)

@@ -40,7 +40,7 @@ class ConvVT:
     """Materialized conv-weight ``Vᵀ`` block in patch-native layout.
 
     ``vt``: ``[CF, S, I, kh, kw, O]``, the channel-major feature order of
-    ``F.unfold``, kept as produced.  The parameter-facing methods permute
+    ``F.unfold``, kept as produced (f32, or demoted by ``conv_vt_dtype``).  The parameter-facing methods permute
     only the small ``K``-stacked side into the PyTorch weight layout
     ``[O, I, kh, kw]`` (``kernel_shape``).
     """
@@ -64,16 +64,23 @@ class ConvVT:
 
         return gram(self._flat(), precision)
 
+    def _flat_as(self, other: torch.Tensor) -> torch.Tensor:
+        """The flat block in the promoted dtype of itself and ``other``: a
+        bf16-stored block is upcast exactly, as JAX promotes it."""
+        return self._flat().to(torch.promote_types(self.vt.dtype, other.dtype))
+
     def v_mat_prod(self, gram_vecs: torch.Tensor) -> torch.Tensor:
         """``V @ ẽ`` for ``[K, CF·S]`` → ``[K, O, I, kh, kw]``."""
         k = gram_vecs.shape[0]
-        native = (gram_vecs @ self._flat()).reshape(k, *self.vt.shape[2:])
+        flat = self._flat_as(gram_vecs)
+        native = (gram_vecs.to(flat.dtype) @ flat).reshape(k, *self.vt.shape[2:])
         return native.permute(0, 4, 1, 2, 3)
 
     def vt_mat_prod(self, mat: torch.Tensor) -> torch.Tensor:
         """``Vᵀ @ m`` for ``[K, O, I, kh, kw]`` → ``[CF·S, K]``."""
+        flat = self._flat_as(mat)
         native = mat.permute(0, 2, 3, 4, 1).reshape(mat.shape[0], -1)
-        return self._flat() @ native.T
+        return flat @ native.to(flat.dtype).T
 
 
 def _conv_supported(m: nn.Conv2d) -> bool:
@@ -102,6 +109,7 @@ def tapped_ggn_sqrt_vt(
     sample_ids=None,
     deflate_ce_null: bool = False,
     column_scale: Optional[float] = None,
+    conv_vt_dtype: Optional[torch.dtype] = None,
 ) -> Dict[str, Any]:
     """Mixed ``Vᵀ`` dict ``{parameter name: tensor | DenseFactor | ConvVT}``.
 
@@ -110,7 +118,10 @@ def tapped_ggn_sqrt_vt(
     is the ``N`` of the reduction weight (default ``X.shape[0]``);
     ``mc_samples``, ``key``, ``sample_ids`` and ``column_scale`` as in
     :func:`vivit_tpu_torch.ggn.ggn_sqrt_vt`, which also builds the blocks
-    of the parameters outside the fast path.
+    of the parameters outside the fast path.  ``conv_vt_dtype`` (e.g.
+    ``torch.bfloat16``) stores the materialized conv-weight blocks demoted,
+    cast after their f32 patch product: a bf16 Gram of them is then the same
+    arithmetic as without the knob.
     """
     from vivit_tpu_torch.engines import forward_fn, module_params
     from vivit_tpu_torch.structured import DenseFactor
@@ -184,6 +195,8 @@ def tapped_ggn_sqrt_vt(
                                padding=m.padding, stride=m.stride)  # [S, K, L]
             df = d.reshape(cf, s, d.shape[2], -1)  # [CF', S, O, L]
             vt = torch.einsum("skl,csol->csko", patches, df)
+            if conv_vt_dtype is not None:
+                vt = vt.to(conv_vt_dtype)
             o, i, kh, kw = m.weight.shape
             mixed[prefix + "weight"] = ConvVT(
                 vt.reshape(cf, s, i, kh, kw, o), m.weight.shape)

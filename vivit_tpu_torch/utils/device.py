@@ -50,6 +50,12 @@ def inputs_on(model, X, y, device=None, params=None):
     else:
         check_params_on(params, device,
                         "move the params dict first ({name: p.to(device)}).")
+    return as_batch(X, y, device)
+
+
+def as_batch(X, y, device):
+    """``(X, y)`` on ``device``: ``X`` f32; integer targets keep their dtype,
+    float targets become f32."""
     y = torch.as_tensor(y, device=device)
     if y.is_floating_point():
         y = y.float()
