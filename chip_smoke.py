@@ -1395,7 +1395,7 @@ def phase_streamed(jc):
     from vivit_tpu_torch.gram import gram_matrix
     from vivit_tpu_torch.optim import utils as optim_utils
     from vivit_tpu_torch.optim.directional_damped_newton import newton_step_from_derivatives
-    from vivit_tpu_torch.precision import full_f32
+    from vivit_tpu_torch.precision import dot_t, full_f32
 
     model_fn, params = generic_model()
     paths = list(params)
@@ -1554,17 +1554,28 @@ def phase_streamed(jc):
 
     def in_memory_f32():
         with full_f32():
-            return gram_matrix(ggn_sqrt_vt(model_fn, loss, params, X5, y5,
-                                           deflate_ce_null=True))
+            vt = ggn_sqrt_vt(model_fn, loss, params, X5, y5, deflate_ce_null=True)
+            return gram_matrix(vt), vt["dense0.weight"].reshape(9 * n, -1)
 
     torch.cuda.empty_cache()
-    g_mem, peak_mem = peak_of(in_memory_f32)
+    (g_mem, dense0), peak_mem = peak_of(in_memory_f32)
     rel = rel_err(g_str, g_mem)
     print(f"N={n} f32 Grams {tuple(g_mem.shape)}: streamed vs in-memory generic "
           f"‖ΔG‖_F/‖G‖_F {rel:.3e} (bar {ENGINE_BAR:.0e}); peak memory: streamed "
           f"{peak_str / 1e9:.3f} GB, in memory {peak_mem / 1e9:.3f} GB", flush=True)
     check(rel <= ENGINE_BAR, f"N={n}: streamed Gram {rel:.2e} off the in-memory one")
     del g_str, g_mem
+    # why dot_t sums blocks of the contraction: dense0's Gram against float64
+    with full_f32():
+        one_chain, blocked = dense0 @ dense0.T, dot_t(dense0, dense0)
+    d64 = dense0.double()
+    del dense0
+    g64 = d64 @ d64.T
+    del d64
+    print(f"N={n} dense0 Gram {tuple(g64.shape)} (K = 589,824) against float64: one "
+          f"cuBLAS call {rel_err(one_chain, g64):.3e}, blocks of 2^14 (precision.dot_t) "
+          f"{rel_err(blocked, g64):.3e}", flush=True)
+    del one_chain, blocked, g64
     torch.cuda.empty_cache()
     return launches, times
 
@@ -1654,6 +1665,43 @@ def tf32_gvp(model_fn, loss, params, X, y, v):
     return vjp_fn(loss.hessian_vp(f, y, jv))[0]
 
 
+def product_floor(model_fn, loss, params, X, y, v, p64, v64):
+    """Printed, not gated: what bounds the f32 GGN-vector product against
+    float64 (the reason for ``PRODUCT_F64_BAR``): float64 at parameters
+    moved by 1e-7; the same product in f32 on the CPU and with cuDNN off;
+    the f32 vjp alone, of the float64 cotangent, per leaf."""
+    import torch
+    from torch.func import jvp, vjp
+
+    from vivit_tpu_torch.ggn import ggn_vector_product
+    from vivit_tpu_torch.precision import full_f32
+
+    X64 = X.double()
+    ref = ggn_vector_product(model_fn, loss, p64, X64, y, v64)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    moved = {k: p * (1 + 1e-7 * torch.randn(p.shape, generator=gen, device="cuda",
+                                            dtype=torch.float64)) for k, p in p64.items()}
+    cpu = ggn_vector_product(model_fn, loss, {k: p.cpu() for k, p in params.items()},
+                             X.cpu(), y.cpu(), {k: t.cpu() for k, t in v.items()})
+    torch.backends.cudnn.enabled = False
+    try:
+        no_cudnn = ggn_vector_product(model_fn, loss, params, X, y, v)
+    finally:
+        torch.backends.cudnn.enabled = True
+    with full_f32():
+        f64, jv64 = jvp(lambda p: model_fn(p, X64), (p64,), (v64,))
+        cot = loss.hessian_vp(f64, y, jv64)
+        _, pull = vjp(lambda p: model_fn(p, X), params)
+        vjp32 = pull(cot.float())[0]
+    leaves = ", ".join(f"{k} {rel_err(vjp32[k], ref[k]):.1e}" for k in ref)
+    moved_err = rel_err(ggn_vector_product(model_fn, loss, moved, X64, y, v64), ref)
+    cpu_err = rel_err({k: t.to("cuda") for k, t in cpu.items()}, ref)
+    print(f"ggn_vector_product N={N} against float64, not gated: float64 at parameters "
+          f"moved by 1e-7 {moved_err:.3e}; f32 on the CPU {cpu_err:.3e}; "
+          f"f32 with cuDNN off {rel_err(no_cudnn, ref):.3e}; the f32 vjp of the float64 "
+          f"cotangent {rel_err(vjp32, ref):.3e} ({leaves})", flush=True)
+
+
 def phase_matrix_free():
     """The matrix-free products at N=128 against float64, the dataset
     operators (576 images), the device Lanczos and the Lanczos density.
@@ -1685,16 +1733,17 @@ def phase_matrix_free():
         got = product(recording, loss, params, X, y, v)
         ref = product(model_fn, loss, p64, X.double(), y, v64)
         rel = rel_err(got, ref)
-        line = (f"{name} N={N}: TF32 off in all {len(flags)} forwards "
-                f"{all(f == (False, False) for f in flags)}; vs float64 ‖Δ‖₂/‖ref‖₂ {rel:.3e} "
-                f"(bar {PRODUCT_F64_BAR:.0e})")
+        tf32_off = all(f == (False, False) for f in flags)
+        line = (f"{name} N={N}: TF32 off in all {len(flags)} forwards {tf32_off}; vs "
+                f"float64 ‖Δ‖₂/‖ref‖₂ {rel:.3e} (bar {PRODUCT_F64_BAR:.0e})")
         if product is ggn_vector_product:
             line += (f"; under the default TF32 flags, as before the products entered "
                      f"full f32: {rel_err(tf32_gvp(model_fn, loss, params, X, y, v), ref):.3e}")
         print(line, flush=True)
-        check(flags and all(f == (False, False) for f in flags), f"{name}: TF32 on inside")
+        check(flags and tf32_off, f"{name}: TF32 on inside")
         check(rel <= PRODUCT_F64_BAR, f"{name}: {rel:.2e} off float64")
         times[f"{name} N={N}"] = host_ms(lambda: product(model_fn, loss, params, X, y, v))
+    product_floor(model_fn, loss, params, X, y, v, p64, v64)
     del p64, v64, ref
 
     rng = np.random.default_rng(0)

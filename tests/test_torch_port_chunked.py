@@ -152,7 +152,7 @@ def test_gram_streamed_bf16_operands_as_in_memory():
 @pytest.mark.parametrize("deflate", [False, True], ids=["raw", "deflated"])
 def test_stream_backward_count(deflate, monkeypatch):
     """The JAX package's loop: CF + CF·(CF+1)/2 slices, (CF−1) + (CF−1)·CF/2
-    deflated, and never more than two alive."""
+    deflated."""
     _, fn, params, loss, X, y = _port("mlp_CrossEntropyLoss_mean")
     calls = []
     single = chunked._vt_single_factor
@@ -260,7 +260,7 @@ def test_backproject_streamed_matches_jax():
     model, fn, params, loss, X, y = _port(name)
     rng = np.random.default_rng(8)
     weights = rng.normal(size=(4 * X.shape[0], 2)).astype(np.float32)
-    _, _, paths, Xs, factors, _ = chunked._prepare_factors(
+    _, _, paths, Xs, factors = chunked._prepare_factors(
         fn, loss, params, X, y, paths=None, subsampling=None, mc_samples=0, key=None,
         batch_size=None)
     with full_f32():

@@ -88,6 +88,7 @@ __all__ = [
     "MSELoss",
     "batch_grad",
     "constant_damping",
+    "deflate",
     "directional_derivatives_topk",
     "eigh_dc",
     "eigh_topk",
@@ -95,7 +96,6 @@ __all__ = [
     "eigvalsh_dc",
     "eigvalsh_streamed",
     "eigvalsh_structured",
-    "deflate",
     "extensions",
     "full_eigh",
     "ggn_mat_prod",

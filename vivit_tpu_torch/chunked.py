@@ -72,7 +72,7 @@ def _vtg_block(vt_i, grad_leaves, paths, precision=None) -> torch.Tensor:
 def _prepare_factors(model, loss, params, X, y, *, paths, subsampling, mc_samples,
                      key, batch_size, deflate_ce_null=False):
     """Shared stream set-up: ``(model_fn, params, paths, Xs, scaled factors
-    [S, CF, C], N)``, the factors those of
+    [S, CF, C])``, the factors those of
     :func:`vivit_tpu_torch.ggn.v_factors` (with ``deflate_ce_null`` projected
     onto the CE null complement, ``CF = C − 1``)."""
     from vivit_tpu_torch.engines import resolve_model
@@ -90,7 +90,7 @@ def _prepare_factors(model, loss, params, X, y, *, paths, subsampling, mc_sample
         f = model_fn(params, Xs)
     factors = v_factors(loss, f, ys, batch_size=N, mc_samples=mc_samples, key=key,
                         sample_ids=sample_ids, deflate_ce_null=deflate_ce_null)
-    return model_fn, params, tuple(paths), Xs, factors, N
+    return model_fn, params, tuple(paths), Xs, factors
 
 
 def gram_streamed(
@@ -120,7 +120,7 @@ def gram_streamed(
     ``(gram, v_t_g [CF·S, N_grad])``.  ``deflate_ce_null``: the exactly
     deflated ``[(C−1)·S]²`` Gram, from one factor slice fewer.
     """
-    model_fn, params, paths, Xs, factors, _ = _prepare_factors(
+    model_fn, params, paths, Xs, factors = _prepare_factors(
         model, loss, params, X, y, paths=paths, subsampling=subsampling,
         mc_samples=mc_samples, key=key, batch_size=batch_size,
         deflate_ce_null=deflate_ce_null)
@@ -264,7 +264,7 @@ def eigh_topk_streamed(
         check_deflatable(loss, mc_samples)
     X, y = inputs_on(model, X, y, device, params=params)
     with matmul_precision(precision):
-        model_fn, fwd_params, paths, Xs, factors, _ = _prepare_factors(
+        model_fn, fwd_params, paths, Xs, factors = _prepare_factors(
             model, loss, params, X, y, paths=paths, subsampling=subsampling,
             mc_samples=mc_samples, key=key, batch_size=batch_size,
             deflate_ce_null=deflate_ce_null)
@@ -327,7 +327,7 @@ def newton_step_streamed(
     X, y = inputs_on(model, X, y, device, params=params)
     with matmul_precision(precision):
         N = batch_size if batch_size is not None else X.shape[0]
-        model_fn, fwd_params, paths, Xs, factors, _ = _prepare_factors(
+        model_fn, fwd_params, paths, Xs, factors = _prepare_factors(
             model, loss, params, X, y, paths=paths, subsampling=subsampling_ggn,
             mc_samples=mc_samples_ggn, key=key, batch_size=batch_size,
             deflate_ce_null=deflate_ce_null)

@@ -46,8 +46,8 @@ def derivatives_stage1(
     """Stage 1: ``Vᵀ`` (:func:`vivit_tpu_torch.engines.build_vt`: the
     structured engine of a module, by ``engine``, its conv blocks in
     ``conv_vt_dtype``, or the generic engine of a model function;
-    Monte-Carlo factors with ``mc_samples_ggn`` and ``key``), and for each group of parameter names its Gram, eigenpairs
-    and ``Vᵀ G``.
+    Monte-Carlo factors with ``mc_samples_ggn`` and ``key``), and for each
+    group of parameter names its Gram, eigenpairs and ``Vᵀ G``.
 
     Returns ``(vt, per_group)``, each entry ``(gram [CF·S, CF·S], evals,
     evecs, V_t_g [CF·S, N_grad])``.  The eigenpairs: the full ascending

@@ -245,8 +245,8 @@ def newton_step_structured(
     and ``damping`` a scalar ``δ`` or a callable ``(evals, gram_evecs,
     gammas, lambdas) -> δ [k]``.  Steps: the undeflated ``Vᵀ`` (``engine``
     ``"tapped"`` or ``"vjp"``; Monte-Carlo factors with ``mc_samples_ggn``
-    and the int ``key``; conv blocks stored in ``conv_vt_dtype``) over the ``subsampling_ggn`` samples, the mixed
-    Gram (``gram_precision``), the top-``k`` (``solver`` ``"eigh"``,
+    and the int ``key``; conv blocks stored in ``conv_vt_dtype``) over the
+    ``subsampling_ggn`` samples, the mixed Gram (``gram_precision``), the top-``k`` (``solver`` ``"eigh"``,
     ``"dc"`` or ``"lobpcg"``; with ``deflate_ce_null`` on the Gram-level
     deflated Gram, lifted), per-sample gradients over ``subsampling_grad``,
     ``Vᵀ g``, γ/λ, and the back-projection of the Gram-space step.  ``X``

@@ -40,9 +40,9 @@ class ConvVT:
     """Materialized conv-weight ``Vᵀ`` block in patch-native layout.
 
     ``vt``: ``[CF, S, I, kh, kw, O]``, the channel-major feature order of
-    ``F.unfold``, kept as produced (f32, or demoted by ``conv_vt_dtype``).  The parameter-facing methods permute
-    only the small ``K``-stacked side into the PyTorch weight layout
-    ``[O, I, kh, kw]`` (``kernel_shape``).
+    ``F.unfold``, kept as produced (f32, or demoted by ``conv_vt_dtype``).
+    The parameter-facing methods permute only the small ``K``-stacked side
+    into the PyTorch weight layout ``[O, I, kh, kw]`` (``kernel_shape``).
     """
 
     def __init__(self, vt: torch.Tensor, kernel_shape: Tuple[int, ...]):
