@@ -237,10 +237,6 @@ def test_eigh_dc_knobs():
     assert torch.equal(full_eigh(H, backend="dc", eigenvectors=False, key=5)[0],
                        eigvalsh_dc(H, key=5))
     full_eigh(H, key=1)  # the vendor backend takes it and draws nothing
-    gen = torch.Generator().manual_seed(5)
-    assert torch.equal(eigvalsh_dc(H, generator=gen), eigvalsh_dc(H, key=5))
-    with pytest.raises(ValueError, match="not both"):
-        eigh_dc(H, key=1, generator=torch.Generator())
     ev, Q, res = refine_eigh(H, eigh_dc(H)[1], key=0, dm_iters=(1, 1))
     assert float(res) < 1e-4
 

@@ -286,6 +286,23 @@ def test_lowrank_and_projector_match_jax():
     np.testing.assert_allclose(proj @ y, y, rtol=1e-4, atol=1e-5)  # idempotent
 
 
+def test_lowrank_and_projector_take_tensors():
+    """Tensors (as ``eigh_topk`` returns them) give the numpy arrays' result."""
+    rng = np.random.default_rng(6)
+    A = rng.normal(size=(20, 3)).astype(np.float32)
+    c = rng.uniform(1, 2, size=3).astype(np.float32)
+    x = rng.normal(size=20).astype(np.float32)
+    op = hf.LowRank(torch.tensor(c), torch.tensor(A), device="cpu")
+    assert op.shape == (20, 20) and op.dtype == np.float32
+    np.testing.assert_allclose(op @ torch.tensor(x), hf.LowRank(c, A, device="cpu") @ x,
+                               rtol=1e-6, atol=1e-7)
+    Q = torch.linalg.qr(torch.tensor(rng.normal(size=(20, 4))))[0]
+    proj = hf.Projector(Q, device="cpu")
+    assert proj.dtype == np.float64
+    np.testing.assert_allclose(proj @ x, hf.Projector(Q.numpy(), device="cpu") @ x,
+                               rtol=1e-12, atol=1e-12)
+
+
 def test_products_run_in_full_f32():
     """The products under the operators turn TF32 off for their matmuls and
     convolutions (on a CUDA card cuDNN would run f32 convolutions in TF32)

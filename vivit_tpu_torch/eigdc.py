@@ -544,7 +544,6 @@ def eigh_dc(
     eigenvectors: bool = True,
     dm_iters: Optional[Tuple[int, int, int]] = None,
     key: Optional[int] = None,
-    generator: Optional[torch.Generator] = None,
     guard: Optional[float] = 1e-4,
     return_info: bool = False,
 ):
@@ -552,11 +551,11 @@ def eigh_dc(
     evecs [n, n] or None[, info])``.
 
     ``n ≤ 160`` goes straight to ``torch.linalg.eigh``; ``n < 1536`` runs the
-    chain path and larger ``n`` the strip path.  The random draws come from
-    ``generator`` (on ``H``'s device), or from a generator on ``H``'s device
-    seeded with the int ``key`` (default 0); not both.  ``dm_iters``
-    overrides the polish's Davies-Modi iterations before, between and after
-    the windowed sweeps (default: the mode's and path's schedule).  The JAX
+    chain path and larger ``n`` the strip path.  The random draws come from a
+    generator on ``H``'s device seeded with the int ``key`` (default 0).
+    ``dm_iters`` overrides the polish's Davies-Modi iterations before,
+    between and after the windowed sweeps (default: the mode's and path's
+    schedule).  The JAX
     package's other tuning knobs are module constants here (``README.md``).
 
     ``guard``: threshold of the runtime self-check (perturbation bound of the
@@ -576,12 +575,9 @@ def eigh_dc(
                 evals, evecs = torch.linalg.eigvalsh(H), None
             return ((evals, evecs, no_trip_info(H.device)) if return_info
                     else (evals, evecs))
-        if generator is None:
-            generator = torch.Generator(device=H.device)
-            generator.manual_seed(0 if key is None else key)
-        elif key is not None:
-            raise ValueError("eigh_dc takes a key or a generator, not both.")
-        return _eigh_dc(H, generator, eigenvectors, dm_iters, guard, return_info)
+        gen = torch.Generator(device=H.device)
+        gen.manual_seed(0 if key is None else key)
+        return _eigh_dc(H, gen, eigenvectors, dm_iters, guard, return_info)
 
 
 def _eigh_dc(H, gen, eigenvectors, dm_iters, guard, return_info):

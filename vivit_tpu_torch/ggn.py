@@ -225,11 +225,8 @@ def ggn_mat_prod(model_fn: ModelFn, loss: Loss, params: Dict[str, torch.Tensor],
                  subsampling: Optional[Sequence[int]] = None) -> Dict[str, torch.Tensor]:
     """The exact GGN applied to stacked vectors ``{name: [K, *shape]}``;
     with ``subsampling`` the GGN of the sub-batch, with its own reduction
-    weight.  Full f32."""
+    weight.  Full f32, from :func:`ggn_vector_product`."""
     from torch.func import vmap
 
-    from vivit_tpu_torch.precision import full_f32
-
     Xs, ys = _subsample(X, y, subsampling)
-    with full_f32():
-        return vmap(lambda v: ggn_vector_product(model_fn, loss, params, Xs, ys, v))(mat)
+    return vmap(lambda v: ggn_vector_product(model_fn, loss, params, Xs, ys, v))(mat)

@@ -7,7 +7,8 @@ import torch
 class LowRank:
     """``Σ_i c_i a_i a_iᵀ`` as a linear operator: a matvec is two skinny
     products on the device, ``A (c ⊙ (Aᵀ x))``.  ``c`` and ``A`` are numpy
-    arrays or tensors; ``x`` a numpy vector (the result one too).  The ``@``
+    arrays or tensors (on any device); ``x`` a numpy vector or a tensor (the
+    result is a numpy vector).  The ``@``
     protocol and ``as_scipy()``, as the curvature operators have.  ``device``
     defaults to the CUDA card (``device="cpu"`` runs on the CPU)."""
 
@@ -15,14 +16,13 @@ class LowRank:
         from vivit_tpu_torch.utils.device import resolve_device
 
         self._device = resolve_device(device)
-        self._A = torch.as_tensor(np.asarray(A), device=self._device)
-        self._c = torch.as_tensor(np.asarray(c), dtype=self._A.dtype, device=self._device)
+        self._A = torch.as_tensor(A, device=self._device)
+        self._c = torch.as_tensor(c, dtype=self._A.dtype, device=self._device)
         self.shape = (self._A.shape[0], self._A.shape[0])
-        self.dtype = np.dtype(np.asarray(A).dtype)
+        self.dtype = torch.empty(0, dtype=self._A.dtype).numpy().dtype
 
     def _matvec(self, x) -> np.ndarray:
-        x = torch.as_tensor(np.asarray(x).reshape(-1), dtype=self._A.dtype,
-                            device=self._device)
+        x = torch.as_tensor(x, dtype=self._A.dtype, device=self._device).reshape(-1)
         return (self._A @ (self._c * (self._A.T @ x))).cpu().numpy()
 
     def matvec(self, x):
@@ -41,4 +41,4 @@ class Projector(LowRank):
     """Projector onto the orthonormal columns ``{a_i}`` of ``A``."""
 
     def __init__(self, A, device=None):
-        super().__init__(np.ones(np.asarray(A).shape[1]), A, device=device)
+        super().__init__(torch.ones(A.shape[1]), A, device=device)
