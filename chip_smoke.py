@@ -86,7 +86,22 @@ Phases, each printed as it runs:
     card), ``host_stream`` against the on-device matvec; the device Lanczos
     (``ncv=128``) on one batch against λmax; the Lanczos density
     (``ncv=64``, boundaries 0 and ARPACK's λmax) with mass within 5% of 1.
-13. The call times of the new entries, the launches of each path, a JSON
+13. **Data parallel** (``vivit_tpu_torch.parallel``) in an NCCL group of
+    world size 1 made in this process (``MASTER_ADDR=127.0.0.1``, a free
+    port), 3c3d at N=128, headline settings: ``eigvalsh_dp_structured`` (2
+    launches, 0/1280 violations against float64 of its own Gram, 128 zeros,
+    within the eigenvalue bar of ``eigvalsh_structured``) and the bare
+    ``all_to_all_single``/``all_reduce`` of its call; ``eigvalsh_dp`` on the
+    model function (2 launches); ``eigh_dp`` (k_top: 6 launches and the
+    eigenpair bars; the criterion path's eigenvalues);
+    ``directional_derivatives_dp`` against ``directional_derivatives_topk``
+    (BASELINE's γ/λ bars); ``newton_step_dp_structured`` (dc, 6 launches)
+    against float64 on its own Gram and against ``newton_step_structured``;
+    ``eigvalsh_streamed_dp`` (45 backward passes, 2 launches, its f32 Gram
+    against the in-memory ``sharded_gram``); three ``train_step_dp`` steps
+    lowering the loss; every dc solve's window batches through the kernel
+    and its plain version; each builder's call time.
+14. The call times of the new entries, the launches of each path, a JSON
     line of the kernels, then ``{"ok": true, "device": ...}`` last.
 
 Any failed check exits non-zero.  Without a CUDA device it exits 2 and
@@ -532,12 +547,13 @@ def recording_eigh(fn):
     return out, batches
 
 
-def host_ms(fn, reps=3):
+def host_ms(fn, reps=3, warmup=True):
     """Median host-clock time of a synchronised call of ``fn``, after a
-    warm-up."""
+    warm-up (``warmup=False``: the caller has just run it)."""
     import torch
 
-    fn()
+    if warmup:
+        fn()
     times = []
     for _ in range(reps):
         torch.cuda.synchronize()
@@ -600,7 +616,9 @@ def check_eigenpairs(label, evals, leaves, paths, vt, w, gram_d, ev_d, V_d):
     float64; the dc solve of the same deflated Gram (``ev_d``, ``V_d``):
     Gram-space residuals, the full basis; the entry's parameter-space vectors:
     unit norm, orthonormality, and float64 eigenvectors sent through the same
-    lift and back-projection, up to sign."""
+    lift (the CE complement ``w``; ``None`` for a factor-level deflated
+    ``vt``, whose Gram is ``gram_d`` itself) and back-projection, up to
+    sign."""
     import torch
 
     from vivit_tpu_torch.deflate import lift_gram_vecs
@@ -635,8 +653,10 @@ def check_eigenpairs(label, evals, leaves, paths, vt, w, gram_d, ev_d, V_d):
     check(norm_err <= 1e-5, f"{label}: parameter-space norms off 1 by {norm_err:.2e}")
     check(off <= ORTH_ATOL + ORTH_RTOL, f"{label}: |v_i^T v_j| up to {off:.2e}")
     with full_f32():
-        ref_leaves = backproject(vt, lift_gram_vecs(ref_V[:, -k:].float(), w), None,
-                                 paths)
+        ref_vecs = ref_V[:, -k:].float()
+        if w is not None:  # Gram-level deflation: the raw Gram's vectors
+            ref_vecs = lift_gram_vecs(ref_vecs, w)
+        ref_leaves = backproject(vt, ref_vecs, None, paths)
     R = stacked(ref_leaves)
     sign = torch.sign((P * R).sum(dim=1, keepdim=True))
     vec_ratio = ((P * sign - R).abs() / (VEC_ATOL + VEC_RTOL * R.abs())).max().item()
@@ -686,10 +706,11 @@ def phase_eigenpairs(jc, model, n, expect_launches):
     return (X, y, loss), launches, (gram_d, ev_d, V_d), batches
 
 
-def time_windows(jc, batches, label):
+def time_windows(jc, batches, label, timed=True):
     """The Jacobi kernel on the window batches of a solve: against its plain
     version (equal sweeps), its time beside ``torch.linalg.eigh`` and its
-    bound; returns the totals ``(kernel, eigh, bound, plain)`` ms."""
+    bound; returns the totals ``(kernel, eigh, bound, plain)`` ms (zeros
+    without ``timed``, which checks alone)."""
     import torch
 
     from vivit_tpu_torch.kernels.jacobi import jacobi_supported
@@ -705,6 +726,10 @@ def time_windows(jc, batches, label):
         gap = max((ev - ev_p).abs().max().item(), (V - V_p).abs().max().item())
         check(gap <= 1e-5 * A.abs().max().item(),
               f"{label} window [{b},{m},{m}]: kernel and plain differ by {gap:.2e}")
+        if not timed:
+            print(f"{label} window [{b},{m},{m}]: sweeps run {int(sw.min())}-{int(sw.max())} "
+                  f"(plain the same), max|kernel-plain| {gap:.3e}", flush=True)
+            continue
         t_k = cuda_ms(lambda: jc.batched_eigh_jacobi_cuda(A), reps=30, calls=10)
         t_l = cuda_ms(lambda: torch.linalg.eigh(A), reps=30, calls=10)
         t_p = cuda_ms(lambda: jc.batched_eigh_jacobi_plain(A, exit_early=True),
@@ -1774,6 +1799,280 @@ def phase_matrix_free():
     return times
 
 
+# the data-parallel Newton step against the single-device
+# newton_step_structured: both solve the top-10 of a bf16 Gram, but of
+# different V (factor-level against Gram-level CE deflation), as the
+# streamed step against the in-memory one (2.357e-04 of max|step| on an H100)
+DP_STEP_BAR = 1e-3
+
+
+def phase_data_parallel(jc):
+    """The data-parallel builders (``vivit_tpu_torch.parallel``) in an NCCL
+    group of world size 1 made in this process, on 3c3d at N=128 with the
+    headline settings.  Returns ``(launches per path, call times)``."""
+    import os
+
+    import torch.distributed as dist
+
+    from vivit_tpu_torch.parallel.launch import free_port
+
+    os.environ["MASTER_ADDR"] = "127.0.0.1"
+    os.environ["MASTER_PORT"] = str(free_port())
+    dist.init_process_group("nccl", rank=0, world_size=1)
+    try:
+        return data_parallel_gates(jc)
+    finally:
+        dist.destroy_process_group()
+
+
+def data_parallel_gates(jc):
+    """Each builder's gates, window batches and call time (phase 13)."""
+    from contextlib import nullcontext
+
+    import torch
+    import torch.distributed as dist
+
+    import vivit_tpu_torch as vtt
+    from vivit_tpu_torch import eigdc, structured
+    from vivit_tpu_torch import parallel as par
+    from vivit_tpu_torch.ggn import batch_grad, ggn_sqrt_vt
+    from vivit_tpu_torch.optim.directional_damped_newton import newton_step_from_derivatives
+    from vivit_tpu_torch.optim.utils import gammas_lambdas
+    from vivit_tpu_torch.parallel import streamed
+    from vivit_tpu_torch.precision import full_f32
+
+    model = port_model()
+    model_fn, params = generic_model()
+    paths = list(params)
+    X, y = port_batch(N)
+    loss = vtt.CrossEntropyLoss("mean")
+    generic = dict(precision="highest", deflate_ce_null=True)  # no gram_precision knob
+    launches, times = {}, {}
+
+    def run(label, call, owner=None, name=None):
+        """A warm-up, then ``(out, the recorded calls of owner.name, the
+        batches batched_eigh received)`` of one call, its launches counted."""
+        untripped(call, label)
+        with (recorded(owner, name) if owner else nullcontext([])) as calls:
+            (out, batches), launches[label] = launches_of(
+                jc, lambda: recording_eigh(lambda: untripped(call, label)))
+        return out, calls, batches
+
+    def report(label, expect, info=None):
+        guard = "" if info is None else (
+            f", guard tripped {bool(info['tripped'])} (bound {float(info['bound']):.2e}, "
+            f"orth {float(info['orth']):.2e})")
+        print(f"{label}: Jacobi launches {launches[label]}{guard}", flush=True)
+        check(launches[label] == expect,
+              f"{label}: expected {expect} Jacobi launches, got {launches[label]}")
+        check(info is None or not bool(info["tripped"]), f"{label}: the eigdc guard tripped")
+
+    def windows(label, batches, timed=True):
+        """The kernel on the solve's windows: timed on the paths of PERF.md's
+        kernel table, checked alone on the others."""
+        win = time_windows(jc, batches, label, timed)
+        if timed:
+            print(f"{label}, its {launches[label]} window launches: kernel {win[0]:.4f} ms, "
+                  f"torch.linalg.eigh {win[1]:.4f} ms, bound {win[2]:.6f} ms, plain "
+                  f"{win[3]:.3f} ms", flush=True)
+
+    def timed_call(label, call):
+        # the builders' calls ran just before: no extra warm-up
+        times[label] = host_ms(call, warmup=False)
+        print(f"{label}: {times[label]:.3f} ms median of 3 (host clock, after a warm-up)",
+              flush=True)
+
+    def eval_ratio(got, want):
+        want = want.double()
+        return ((got.double() - want).abs()
+                / (ATOL * want.abs().max() + RTOL * want.abs())).max().item()
+
+    # eigvalsh_dp_structured: the headline's builder
+    label = f"eigvalsh_dp_structured N={N} (world size 1)"
+    fn = par.eigvalsh_dp_structured(model, loss, None, eig_backend="dc", return_eig_info=True,
+                                    **HEADLINE)
+    (evals, info), grams, batches = run(label, lambda: fn(X, y), par, "_structured_gram_dp")
+    gram = grams[0][1]
+    report(label, 2, info)
+    check_spectrum(label, evals, gram, N)
+    (single,) = vtt.eigvalsh_structured(model, loss, X, y, eig_backend="dc", **HEADLINE)
+    ratio = eval_ratio(evals, single)
+    print(f"{label} vs eigvalsh_structured on the same batch: max err/tol {ratio:.3f}",
+          flush=True)
+    check(ratio <= 1.0, f"{label}: {ratio:.2f} of the eigenvalue bar off eigvalsh_structured")
+    windows(label, batches)
+    timed_call(label, lambda: fn(X, y))
+
+    # its collectives, bare (world size 1: copies on the card, no link)
+    with recorded(par, "sharded_gram") as calls:
+        fn(X, y)
+    v = calls[0][0][0]
+    send = v.reshape(v.shape[0], 1, -1).transpose(0, 1).contiguous()
+    recv = torch.empty_like(send)
+    t_a2a = cuda_ms(lambda: dist.all_to_all_single(recv, send), reps=5)
+    g = gram.clone()
+    t_ar = cuda_ms(lambda: dist.all_reduce(g), reps=20)
+    a2a_gb, ar_gb = send.numel() * 4 / 1e9, g.numel() * 4 / 1e9
+    print(f"collectives at world size 1 (NCCL, copies on the card): all_to_all_single of the "
+          f"conv/bias V rows {tuple(v.shape)} f32 ({a2a_gb:.3f} GB) {t_a2a:.3f} ms "
+          f"({2 * a2a_gb / t_a2a * 1e3:.1f} GB/s read + write); all_reduce of the Gram "
+          f"{tuple(g.shape)} ({ar_gb * 1e3:.3f} MB) {t_ar:.4f} ms (CUDA events, median)",
+          flush=True)
+    times["all_to_all_single (world size 1)"], times["all_reduce (world size 1)"] = t_a2a, t_ar
+    del calls, v, send, recv, g, gram, grams
+
+    # eigvalsh_dp: the generic V-transform of the model function
+    label = f"eigvalsh_dp N={N} (world size 1)"
+    fn = par.eigvalsh_dp(model_fn, loss, None, eig_backend="dc", return_eig_info=True,
+                         **generic)
+    (evals, info), grams, batches = run(label, lambda: fn(params, X, y), par, "sharded_gram")
+    report(label, 2, info)
+    check_spectrum(label, evals, grams[0][1], N)
+    del grams
+    windows(label, batches, timed=False)
+    timed_call(label, lambda: fn(params, X, y))
+
+    # eigh_dp: the k_top path against float64, the criterion path
+    label = f"eigh_dp N={N}, k_top={TOP_K} (world size 1)"
+    fn = par.eigh_dp(model_fn, loss, None, TOP_K, solver="dc", return_eig_info=True,
+                     **generic)
+    (ev, vecs, info), grams, batches = run(label, lambda: fn(params, X, y), par,
+                                           "sharded_gram")
+    report(label, 6, info)
+    gram_d = grams[0][1]
+    with full_f32():
+        vt = ggn_sqrt_vt(model_fn, loss, params, X, y, deflate_ce_null=True)
+        ev_d, V_d = eigdc.eigh_dc(gram_d)
+    check_eigenpairs(label, ev, [vecs[p] for p in paths], paths, vt, None, gram_d, ev_d, V_d)
+    del vt, vecs, grams, gram_d, V_d
+    windows(label, batches, timed=False)
+    timed_call(label, lambda: fn(params, X, y))
+    crit = par.eigh_dp(model_fn, loss, None, criterion=vtt.keep_top_k(TOP_K), solver="dc",
+                       **generic)
+    ev_c, _ = untripped(lambda: crit(params, X, y), label)
+    ratio = eval_ratio(ev_c, ev)
+    print(f"eigh_dp N={N}, criterion keep_top_k({TOP_K}) (world size 1): top-{TOP_K} vs the "
+          f"k_top path max err/tol {ratio:.3f}", flush=True)
+    check(ratio <= 1.0, f"eigh_dp criterion path: {ratio:.2f} of the bar off k_top")
+
+    # directional_derivatives_dp against directional_derivatives_topk
+    label = f"directional_derivatives_dp N={N}, k_top={TOP_K} (world size 1)"
+    fn = par.directional_derivatives_dp(model_fn, loss, None, TOP_K, solver="dc",
+                                        return_eig_info=True, **generic)
+    (ev, gammas, lambdas, info), _, batches = run(label, lambda: fn(params, X, y))
+    report(label, 6, info)
+    ev_s, gammas_s, lambdas_s = vtt.directional_derivatives_topk(
+        model_fn, loss, X, y, TOP_K, params=params, solver="dc", deflate_ce_null=True,
+        device=X.device)
+    sign = (gammas.double() * gammas_s.double()).sum(dim=0).sign()
+    ratios = {"top-10 eigenvalues": eval_ratio(ev, ev_s)}
+    for name, got, want, atol in (("γ", gammas.double() * sign, gammas_s, GAMMA_ATOL),
+                                  ("λ", lambdas, lambdas_s, LAMBDA_ATOL)):
+        want = want.double()
+        tol = atol * max(float(want.abs().max()), 1.0) + NEWTON_RTOL * want.abs()
+        ratios[name] = ((got.double() - want).abs() / tol).max().item()
+    print(f"{label} vs directional_derivatives_topk (single device, f32 Gram, dc), max "
+          "err/tol: " + ", ".join(f"{k} {v:.3f}" for k, v in ratios.items()), flush=True)
+    bad = [f"{k} at {v:.2f} of its bar" for k, v in ratios.items() if v > 1.0]
+    check(not bad, f"{label}: " + "; ".join(bad))
+    windows(label, batches, timed=False)
+    timed_call(label, lambda: fn(params, X, y))
+
+    # newton_step_dp_structured against float64 on its own Gram
+    label = f"newton_step_dp_structured N={N}, k_top={TOP_K} (dc, world size 1)"
+    fn = par.newton_step_dp_structured(model, loss, None, TOP_K, 1.0, solver="dc", **HEADLINE)
+    mpaths = [name for name, _ in model.named_parameters()]
+    with recorded(structured, "structured_ggn_sqrt_vt") as vts:
+        (ev, step), grams, batches = run(label, lambda: fn(X, y), par, "_structured_gram_dp")
+    report(label, 6)
+    gram, vt = grams[0][1], vts[-1][1]
+    with full_f32():
+        ev64, Q64 = torch.linalg.eigh(gram.double())
+        ev_k, V_k = ev64[-TOP_K:], Q64[:, -TOP_K:]
+        grads = batch_grad(model, loss, X, y)
+        v_t_g = structured.vt_mat_prod_mixed(vt, [grads[p] * N for p in mpaths], mpaths)
+        gammas_o, lambdas_o = gammas_lambdas(gram.double(), ev_k, V_k, v_t_g.double(), N)
+        step_o = newton_step_from_derivatives(vt, mpaths, ev_k.float(), V_k.float(),
+                                              gammas_o.float(), lambdas_o.float(), 1.0)
+    scale = max(max(float(o.abs().max()) for o in step_o), 1.0)
+    ratios = {"top-10 eigenvalues": eval_ratio(ev, ev_k), "step": max(
+        ((s.double() - o.double()).abs()
+         / (NEWTON_ATOL * scale + NEWTON_RTOL * o.double().abs())).max().item()
+        for s, o in zip(step, step_o))}
+    single = vtt.newton_step_structured(model, loss, X, y, TOP_K, damping=1.0, solver="dc",
+                                        **HEADLINE)
+    dev = (max(float((a - b).abs().max()) for a, b in zip(step, single))
+           / max(float(t.abs().max()) for t in single))
+    print(f"{label}: against the float64 pipeline on its own Gram, max err/tol: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in ratios.items())
+          + f"; vs newton_step_structured (dc) on the same batch: max|Δ|/max|step| "
+          f"{dev:.3e} (bar {DP_STEP_BAR:.0e})", flush=True)
+    bad = [f"{k} at {v:.2f} of its bar" for k, v in ratios.items() if v > 1.0]
+    check(not bad, f"{label}: " + "; ".join(bad))
+    check(dev <= DP_STEP_BAR, f"{label}: {dev:.2e} off newton_step_structured")
+    del vts, vt, grams, gram, grads, v_t_g, step_o, single
+    windows(label, batches)
+    timed_call(label, lambda: fn(X, y))
+
+    # eigvalsh_streamed_dp: the stream's backward passes; its f32 Gram
+    # against the in-memory sharded_gram
+    label = f"eigvalsh_streamed_dp N={N} (world size 1)"
+    fn = par.eigvalsh_streamed_dp(model_fn, loss, None, eig_backend="dc",
+                                  return_eig_info=True, **HEADLINE)
+    untripped(lambda: fn(params, X, y), label)  # warm-up
+    with counted(streamed, "_vt_slice_flat") as slices, \
+            recorded(streamed, "gram_streamed_shard") as grams:
+        ((evals, info), batches), launches[label] = launches_of(jc, lambda: recording_eigh(
+            lambda: untripped(lambda: fn(params, X, y), label)))
+    passes = len(slices)
+    print(f"{label}: {passes} backward passes", flush=True)
+    check(passes == 45, f"{label}: {passes} backward passes, expected 45")
+    report(label, 2, info)
+    check_spectrum(label, evals, grams[0][1], N)
+    del grams
+    with full_f32():
+        g_str = par.gram_streamed_shard(model_fn, loss, params, X, y, paths=paths,
+                                        deflate_ce_null=True)
+        vt = ggn_sqrt_vt(model_fn, loss, params, X, y, deflate_ce_null=True)
+        g_mem = par.sharded_gram(par._flatten_vt(vt, paths))
+    del vt
+    cf = g_str.shape[0] // N
+    perm = torch.arange(cf * N, device=X.device).reshape(cf, 1, N).transpose(0, 1).reshape(-1)
+    rel = rel_err(g_str[perm][:, perm], g_mem)
+    print(f"gram_streamed_shard N={N} (f32, deflated {tuple(g_str.shape)}) vs the in-memory "
+          f"sharded_gram, (cf, rank, n) → (rank, cf, n): ‖ΔG‖_F/‖G‖_F {rel:.3e} "
+          f"(bar {ENGINE_BAR:.0e})", flush=True)
+    check(rel <= ENGINE_BAR, f"gram_streamed_shard: {rel:.2e} off the in-memory Gram")
+    del g_str, g_mem
+    windows(label, batches)
+    timed_call(label, lambda: fn(params, X, y))
+
+    # train_step_dp: three steps lower the loss on the batch
+    label = f"train_step_dp N={N}, k_top={TOP_K}, 3 steps (dc, world size 1)"
+    step = par.train_step_dp(model_fn, loss, None, TOP_K, damping=1.0, lr=1.0, solver="dc",
+                             **generic)
+
+    def batch_loss(p):
+        with torch.no_grad():
+            return float(loss(model_fn(p, X), y))
+
+    def three_steps():
+        p, out = params, [batch_loss(params)]
+        for _ in range(3):
+            p, _ = untripped(lambda: step(p, X, y), label)
+            out.append(batch_loss(p))
+        return out
+
+    losses, launches[label] = launches_of(jc, three_steps)
+    print(f"{label}: loss on the batch {[round(v, 6) for v in losses]}, Jacobi launches "
+          f"{launches[label]}", flush=True)
+    check(losses[-1] < losses[0], f"{label}: the loss did not fall: {losses}")
+    check(launches[label] == 18, f"{label}: {launches[label]} Jacobi launches, expected 18")
+    timed_call(f"train_step_dp N={N}, k_top={TOP_K}, one step (dc, world size 1)",
+               lambda: step(params, X, y))
+    return launches, times
+
+
 def main():
     import torch
 
@@ -1814,9 +2113,12 @@ def main():
         streamed_launches, times = phase_streamed(jc)
         times.update(phase_extensions())
         times.update(phase_matrix_free())
+        dp_launches, dp_times = phase_data_parallel(jc)
+        times.update(dp_times)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAIL: {exc}", file=sys.stderr)
         return 1
+    print(card, flush=True)  # again beside the times, inside a tail of the output
     for name, ms in times.items():
         print(f"time: {name}: {ms:.3f} ms", flush=True)
 
@@ -1828,7 +2130,7 @@ def main():
         f"eigh_topk N={N_LARGE}": large_launches,
         f"newton_step_structured N={N} (lobpcg)": newton_launches["lobpcg"],
         f"newton_step_structured N={N} (dc)": newton_launches["dc"],
-        **generic_launches, **streamed_launches}), flush=True)
+        **generic_launches, **streamed_launches, **dp_launches}), flush=True)
 
     t = [timing[s] for s in HEADLINE_SHAPES]
     kernels = [{

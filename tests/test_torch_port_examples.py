@@ -1,7 +1,8 @@
 """The port's examples (``examples_torch/example_*.py``) run as scripts, on
 the CPU here (each picks the CUDA card when there is one).  The heavy
-``example_fast_eigensolver`` carries the ``slow`` marker, as its JAX twin
-does in ``tests/test_examples.py``."""
+``example_fast_eigensolver`` and ``example_data_parallel`` (it spawns a
+process group) carry the ``slow`` marker, as their JAX twins do in
+``tests/test_examples.py``."""
 
 import pathlib
 import runpy
@@ -11,7 +12,7 @@ import torch
 
 EXAMPLES = sorted(
     (pathlib.Path(__file__).parent.parent / "examples_torch").glob("example_*.py"))
-_HEAVY = {"example_fast_eigensolver"}
+_HEAVY = {"example_fast_eigensolver", "example_data_parallel"}
 EXAMPLES = [pytest.param(p, marks=pytest.mark.slow) if p.stem in _HEAVY else p
             for p in EXAMPLES]
 

@@ -42,7 +42,12 @@ The port so far covers, for an ``nn.Module`` or a plain model function
   :func:`~vivit_tpu_torch.eigdc.refine_eigh`, whose window solves run the
   hand-written Hopper Jacobi kernel
   (:mod:`~vivit_tpu_torch.kernels.jacobi_cuda`, ``csrc/jacobi.cu``), and
-  LOBPCG for the top-k (:mod:`~vivit_tpu_torch.lobpcg`).
+  LOBPCG for the top-k (:mod:`~vivit_tpu_torch.lobpcg`);
+* data parallelism over ``torch.distributed``
+  (:mod:`~vivit_tpu_torch.parallel`: the batch sharded over the ranks of a
+  process group, the Gram assembled with ``all_to_all`` and
+  ``all_reduce``; the streamed composition in
+  :mod:`~vivit_tpu_torch.parallel.streamed`).
 
 Entry points run on the CUDA card unless the caller passes ``device="cpu"``.
 """
