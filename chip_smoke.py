@@ -13,9 +13,11 @@ Phases, each printed as it runs:
    rule; times of the kernel, its plain version and ``torch.linalg.eigh`` on
    the same batch (CUDA events around 10 calls back to back and around one
    call, median), beside the bound on the sweeps run and on all 12.
-   Then a **shape sweep** for the dispatch envelope: the kernel against
-   ``torch.linalg.eigh`` at ``b in {1, 8, 37, 64}`` x ``m in {32, 48, 64}``,
-   ``b*m <= 2048``, one line per shape.
+   Then a **shape sweep** over the kernel's envelope, the kernel against
+   ``torch.linalg.eigh`` at ``b in {1, 8, 37, 64, 73, 132, 146, 292, 438}``
+   x ``m in {32, 48, 64}`` (up to four waves of one CTA per SM at m=64),
+   each shape first held to its plain version and float64 (CUDA events,
+   median and spread of 5).
 3. **Main path**: ``eigvalsh_structured`` on full-width CIFAR-10 3c3d at
    N=128 with the headline settings (bf16 Gram, CE deflation, dc
    eigensolver).  Weights: ``cnn3c3d_flax_params(seed=0)`` (numpy) through
@@ -34,16 +36,16 @@ Phases, each printed as it runs:
    ``torch.linalg.eigh``; then ``refine_eigh`` on the same Gram, warm-started
    from the dc basis (2 launches).
 5. **N=512 spectrum**: ``eigvalsh_structured`` with the headline settings at
-   N=512 (4608², the strip path): 0 Jacobi launches (its w=64 windows are
-   outside the kernel's envelope), the guard, 0/4608 float64 violations, 512
-   structural zeros.
+   N=512 (4608², the strip path): 4 Jacobi launches (its w=64 windows
+   ``[73,64,64]`` and ``[72,64,64]``, twice), the guard, 0/4608 float64
+   violations, 512 structural zeros; the windows through kernel and plain
+   version, timed.
 6. **N=512 eigenpairs**: ``eigh_topk`` at N=512 (the strip path in
-   eigenvector mode), the checks of phase 4.
+   eigenvector mode), the checks of phase 4 with 6 launches, its windows
+   timed.
 7. **Times**: each new entry's call (median of 3 after a warm-up, host
    clock around a synchronised call; the N=512 eigenpairs one call) and its
-   stages on CUDA events; one
-   profiled N=512 eigenpair call; ``torch.linalg.eigh`` on each batch shape
-   the N=512 eigenpair solve hands ``batched_eigh``.
+   stages on CUDA events; one profiled N=512 eigenpair call.
 8. **Newton step**: ``newton_step_structured(k=10, damping=1.0)`` at N=128
    with the headline settings, ``solver="lobpcg"`` (the JAX package's bench
    leg, ``bench.py:181-190``) and ``solver="dc"``: 0 and 6 Jacobi launches,
@@ -70,7 +72,8 @@ Phases, each printed as it runs:
     model function: the streamed f32 Gram at N=128 against the in-memory
     one (54 backward passes); ``eigvalsh_streamed`` at N=128 (2 launches,
     the spectrum against float64 of its own Gram) and N=512 (the strip
-    path, 0 launches, 0/5120 violations, peak memory below the in-memory
+    path, 4 launches, its windows timed, 0/5120 violations, peak memory
+    below the in-memory
     deflated Vᵀ's 16.50 GB, stages on CUDA events; the streamed and the
     in-memory f32 Grams and their peaks); ``eigh_topk_streamed`` (6
     launches, the eigenpair bars) and ``newton_step_streamed`` (6 launches,
@@ -121,7 +124,8 @@ N = 128
 NUM_CLASSES = 10
 KERNEL_SHAPES = [(37, 32), (36, 32), (13, 32), (16, 48), (32, 64)]
 HEADLINE_SHAPES = [(37, 32), (36, 32)]  # the window solves of one n=1152 solve
-SWEEP_SHAPES = [(b, m) for m in (32, 48, 64) for b in (1, 8, 37, 64) if b * m <= 2048]
+SWEEP_SHAPES = [(b, m) for m in (32, 48, 64)
+                for b in (1, 8, 37, 64, 73, 132, 146, 292, 438)]
 # H100 SXM peaks (NVIDIA data sheet): f32 outside the tensor cores, HBM3
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
@@ -157,9 +161,9 @@ def check(cond, msg):
         raise SmokeFailure(msg)
 
 
-def cuda_ms(fn, reps, warmup=2, calls=1):
-    """Median time of one call of ``fn`` in ms: CUDA events around ``calls``
-    back-to-back calls, over ``calls``, median of ``reps`` such runs.  With
+def cuda_times(fn, reps, warmup=2, calls=1):
+    """Times of one call of ``fn`` in ms: CUDA events around ``calls``
+    back-to-back calls, over ``calls``, for each of ``reps`` such runs.  With
     ``calls=1`` the events also hold the host's time before the launch."""
     import torch
 
@@ -175,7 +179,30 @@ def cuda_ms(fn, reps, warmup=2, calls=1):
         end.record()
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end) / calls)
-    return float(np.median(times))
+    return times
+
+
+def cuda_once(fn):
+    """``(fn(), its time in ms)``: CUDA events around one call."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def cuda_ms(fn, reps, warmup=2, calls=1):
+    """The median of :func:`cuda_times`."""
+    return float(np.median(cuda_times(fn, reps, warmup, calls)))
+
+
+def spread(times):
+    """``"median ms [min-max]"`` of a list of times."""
+    return f"{np.median(times):.4f} ms [{min(times):.4f}-{max(times):.4f}]"
 
 
 def random_sym(b, m, seed):
@@ -261,20 +288,33 @@ def phase_kernel(jc):
 
 
 def phase_shape_sweep(jc):
-    """Kernel against ``torch.linalg.eigh`` over the envelope's shapes (data
-    for the H100 dispatch decision; the dispatch does not read it)."""
+    """The kernel against ``torch.linalg.eigh`` over ``SWEEP_SHAPES``, each
+    shape first held to the plain version and to float64: the data behind
+    ``jacobi_supported``."""
     import torch
 
     for b, m in SWEEP_SHAPES:
         A = torch.tensor(random_sym(b, m, seed=b * 1000 + m), device="cuda")
+        label = f"shape sweep [{b},{m},{m}]"
         ev, V, sw = jc.batched_eigh_jacobi_cuda(A, return_sweeps=True)
+        ev_p, V_p, sw_p = jc.batched_eigh_jacobi_plain(A, exit_early=True,
+                                                       return_sweeps=True)
         torch.cuda.synchronize()
-        check_eigh(A, ev, V, f"shape sweep [{b},{m},{m}]")
-        t_k = cuda_ms(lambda: jc.batched_eigh_jacobi_cuda(A), reps=10, calls=10)
-        t_l = cuda_ms(lambda: torch.linalg.eigh(A), reps=10, calls=10)
-        print(f"shape sweep [{b},{m},{m}]: kernel {t_k:.4f} ms, torch.linalg.eigh "
-              f"{t_l:.4f} ms, kernel/eigh {t_k / t_l:.3f}, sweeps run "
-              f"{int(sw.min())}-{int(sw.max())}", flush=True)
+        ref, err64 = check_eigh(A, ev, V, label)
+        gap = (ev - ev_p).abs().amax(dim=-1)
+        check(bool((gap <= 1e-5 * ref.abs().amax(dim=-1)).all()),
+              f"{label}: kernel and plain differ by {gap.max().item():.2e}")
+        check(abs(int(sw.max()) - int(sw_p.max())) <= 1,
+              f"{label}: kernel ran {int(sw.max())} sweeps, plain {int(sw_p.max())}")
+        equal = torch.equal(ev, ev_p) and torch.equal(V, V_p) and torch.equal(sw, sw_p)
+        t_k = cuda_times(lambda: jc.batched_eigh_jacobi_cuda(A), reps=5, warmup=1)
+        t_l = cuda_times(lambda: torch.linalg.eigh(A), reps=5, warmup=1)
+        print(f"{label}: kernel {spread(t_k)}, torch.linalg.eigh {spread(t_l)} "
+              f"(CUDA events, median [min-max] of 5), kernel/eigh "
+              f"{np.median(t_k) / np.median(t_l):.3f}; sweeps run "
+              f"{int(sw.min())}-{int(sw.max())} (plain {int(sw_p.min())}-{int(sw_p.max())}), "
+              f"max|kernel-plain| {gap.max().item():.3e}, bit-equal {equal}, "
+              f"max|kernel-f64| {err64:.3e}", flush=True)
 
 
 def phase_main_path(jc):
@@ -706,40 +746,49 @@ def phase_eigenpairs(jc, model, n, expect_launches):
     return (X, y, loss), launches, (gram_d, ev_d, V_d), batches
 
 
-def time_windows(jc, batches, label, timed=True):
-    """The Jacobi kernel on the window batches of a solve: against its plain
-    version (equal sweeps), its time beside ``torch.linalg.eigh`` and its
-    bound; returns the totals ``(kernel, eigh, bound, plain)`` ms (zeros
-    without ``timed``, which checks alone)."""
+def time_windows(jc, batches, label, timed=True, reps=30, calls=10):
+    """The Jacobi kernel on the window batches of a solve (those
+    ``batched_eigh`` sends it): against its plain version (equal sweeps; the
+    plain version's one call timed), its time beside ``torch.linalg.eigh``
+    (``calls`` back to back, median of ``reps``) and its bound; prints and
+    returns the totals as the fields of the ``kernels`` line (``timed=False``
+    checks alone)."""
     import torch
 
     from vivit_tpu_torch.kernels.jacobi import jacobi_supported
 
-    totals = np.zeros(4)
+    totals = dict(launches=0, max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0,
+                  bound_by=None, library_ms=0.0)
     for A in (A for A in batches if jacobi_supported(A.shape, A.dtype)):
         b, m, _ = A.shape
         ev, V, sw = jc.batched_eigh_jacobi_cuda(A, return_sweeps=True)
-        ev_p, V_p, sw_p = jc.batched_eigh_jacobi_plain(A, exit_early=True,
-                                                       return_sweeps=True)
-        torch.cuda.synchronize()
+        (ev_p, V_p, sw_p), t_p = cuda_once(lambda: jc.batched_eigh_jacobi_plain(
+            A, exit_early=True, return_sweeps=True))
         check(torch.equal(sw, sw_p), f"{label} window [{b},{m},{m}]: sweeps differ")
         gap = max((ev - ev_p).abs().max().item(), (V - V_p).abs().max().item())
         check(gap <= 1e-5 * A.abs().max().item(),
               f"{label} window [{b},{m},{m}]: kernel and plain differ by {gap:.2e}")
-        if not timed:
-            print(f"{label} window [{b},{m},{m}]: sweeps run {int(sw.min())}-{int(sw.max())} "
-                  f"(plain the same), max|kernel-plain| {gap:.3e}", flush=True)
-            continue
-        t_k = cuda_ms(lambda: jc.batched_eigh_jacobi_cuda(A), reps=30, calls=10)
-        t_l = cuda_ms(lambda: torch.linalg.eigh(A), reps=30, calls=10)
-        t_p = cuda_ms(lambda: jc.batched_eigh_jacobi_plain(A, exit_early=True),
-                      reps=1, warmup=0)
-        bound, by = jc.bound_ms(b, m, int(sw.sum()), PEAK_F32_FLOPS, PEAK_BYTES)
-        totals += (t_k, t_l, bound, t_p)
-        print(f"{label} window [{b},{m},{m}]: sweeps run {int(sw.min())}-{int(sw.max())}, "
-              f"max|kernel-plain| {gap:.3e}, kernel {t_k:.4f} ms, torch.linalg.eigh "
-              f"{t_l:.4f} ms (10 calls back to back), plain {t_p:.3f} ms, bound "
-              f"{bound:.6f} ms ({by})", flush=True)
+        totals["launches"] += 1
+        totals["max_abs_err"] = max(totals["max_abs_err"], gap)
+        line = (f"{label} window [{b},{m},{m}]: sweeps run {int(sw.min())}-{int(sw.max())}"
+                f" (plain the same), max|kernel-plain| {gap:.3e}")
+        if timed:
+            t_k = cuda_ms(lambda: jc.batched_eigh_jacobi_cuda(A), reps=reps, calls=calls)
+            t_l = cuda_ms(lambda: torch.linalg.eigh(A), reps=reps, calls=calls)
+            bound, by = jc.bound_ms(b, m, int(sw.sum()), PEAK_F32_FLOPS, PEAK_BYTES)
+            for key, t in (("ms", t_k), ("library_ms", t_l), ("bound_ms", bound),
+                           ("plain_ms", t_p)):
+                totals[key] += t
+            totals["bound_by"] = by
+            line += (f", kernel {t_k:.4f} ms, torch.linalg.eigh {t_l:.4f} ms (median "
+                     f"of {reps} runs of {calls} calls), plain {t_p:.3f} ms, bound "
+                     f"{bound:.6f} ms ({by})")
+        print(line, flush=True)
+    if timed:
+        print(f"{label}, its {totals['launches']} window launches: kernel "
+              f"{totals['ms']:.4f} ms, torch.linalg.eigh {totals['library_ms']:.4f} ms, "
+              f"bound {totals['bound_ms']:.6f} ms, plain {totals['plain_ms']:.3f} ms",
+              flush=True)
     return totals
 
 
@@ -763,16 +812,14 @@ def phase_refine(jc, gram_d, V_d):
     check(launches == 2, f"refine_eigh: expected 2 Jacobi launches, got {launches}")
     check(float(res) < 1e-4, f"refine_eigh: residual {float(res):.2e}")
     check(ratio <= 1.0, f"refine_eigh: eigenvalues off float64 (max err/tol {ratio:.2f})")
-    win = time_windows(jc, batches, "refine_eigh")
-    print(f"refine_eigh, its {launches} window launches: kernel {win[0]:.4f} ms, "
-          f"torch.linalg.eigh {win[1]:.4f} ms, bound {win[2]:.6f} ms, plain "
-          f"{win[3]:.3f} ms", flush=True)
+    time_windows(jc, batches, "refine_eigh")
     return launches
 
 
-def phase_spectrum_large(jc, model):
-    """``eigvalsh_structured`` at N=512 (the strip path); returns its
-    launches and inputs."""
+def phase_spectrum_large(jc, model, expect_launches):
+    """``eigvalsh_structured`` at N=512 (the strip path), its w=64 windows
+    through the kernel and its plain version, timed; returns its launches,
+    inputs and the window totals of :func:`time_windows`."""
     import torch
 
     import vivit_tpu_torch as vtt
@@ -796,7 +843,8 @@ def phase_spectrum_large(jc, model):
     print(f"{label}: {evals.numel()} eigenvalues, {n_zero} exact zeros, Jacobi launches "
           f"{launches}, guard tripped {bool(info['tripped'])} (bound "
           f"{float(info['bound']):.2e}, orth {float(info['orth']):.2e})", flush=True)
-    check(launches == 0, f"{label}: expected 0 Jacobi launches, got {launches}")
+    check(launches == expect_launches,
+          f"{label}: expected {expect_launches} Jacobi launches, got {launches}")
     check(not bool(info["tripped"]), f"{label}: the eigdc guard tripped")
     check(evals.numel() == n * NUM_CLASSES, f"{label}: {evals.numel()} eigenvalues")
     check(bool(torch.isfinite(evals).all()), f"{label}: non-finite eigenvalues")
@@ -805,7 +853,8 @@ def phase_spectrum_large(jc, model):
     with full_f32():
         vt = tapped_ggn_sqrt_vt(model, loss, X, y, deflate_ce_null=True)
         gram = gram_matrix_mixed(vt, generic_precision=_PRECISIONS["bf16"])
-        ev_dc, info_dc = eigdc.eigvalsh_dc(gram, return_info=True)
+        (ev_dc, info_dc), batches = recording_eigh(
+            lambda: eigdc.eigvalsh_dc(gram, return_info=True))
     ref = torch.linalg.eigvalsh(gram.double())
     for name, got, want in (
             (f"deflated Gram {tuple(gram.shape)} dc", ev_dc, ref),
@@ -819,13 +868,13 @@ def phase_spectrum_large(jc, model):
               "violations", flush=True)
         check(bad == 0, f"{name}: {bad} violations of float64")
     check(not bool(info_dc["tripped"]), f"deflated Gram {tuple(gram.shape)}: guard tripped")
-    return launches, (X, y, loss)
+    # eigh's ~30 ms per window batch: one call per run, median of 5
+    return launches, (X, y, loss), time_windows(jc, batches, label, reps=5, calls=1)
 
 
-def phase_times(jc, model, inputs_small, inputs_large, spectrum_inputs):
-    """Times of the new entries and their stages, one profiled N=512
-    eigenpair call, and ``torch.linalg.eigh`` on the N=512 eigenpair solve's
-    batch shapes."""
+def phase_times(model, inputs_small, inputs_large, spectrum_inputs):
+    """Times of the new entries and their stages, and one profiled N=512
+    eigenpair call."""
     import torch
 
     import vivit_tpu_torch as vtt
@@ -887,16 +936,6 @@ def phase_times(jc, model, inputs_small, inputs_large, spectrum_inputs):
 
     print(f"profiled call: eigh_topk N={X.shape[0]}", flush=True)
     profile_step(eigenpairs)
-    _, batches = recording_eigh(eigenpairs)
-    shapes = {}
-    for A in batches:
-        shapes.setdefault(tuple(A.shape), A)
-    counts = {s: sum(tuple(A.shape) == s for A in batches) for s in shapes}
-    for shape, A in shapes.items():
-        t = cuda_ms(lambda: torch.linalg.eigh(A), reps=5, warmup=1)
-        print(f"eigh_topk N={X.shape[0]} batched_eigh {list(shape)} x{counts[shape]} per "
-              f"solve: torch.linalg.eigh {t:.3f} ms (CUDA events, median of 5)",
-              flush=True)
 
 
 @contextmanager
@@ -1085,10 +1124,7 @@ def phase_newton(jc, model):
         failed += [f"{label}: {k} at {v:.2f} of its bar"
                    for k, (v, gated) in ratios.items() if gated and v > 1.0]
         if solver == "dc":
-            win = time_windows(jc, batches, label)
-            print(f"{label}, its {launches[solver]} window launches: kernel {win[0]:.4f} ms, "
-                  f"torch.linalg.eigh {win[1]:.4f} ms, bound {win[2]:.6f} ms, plain "
-                  f"{win[3]:.3f} ms", flush=True)
+            time_windows(jc, batches, label)
     check(not failed, "; ".join(failed))
 
     for solver in ("lobpcg", "dc"):
@@ -1193,10 +1229,7 @@ def phase_generic(jc):
     check(launches[label] == 2, f"{label}: expected 2 Jacobi launches, got {launches[label]}")
     check(not bool(info["tripped"]), f"{label}: the eigdc guard tripped")
     check_spectrum(label, evals, gram_d, N)
-    win = time_windows(jc, batches, label)
-    print(f"{label}, its {launches[label]} window launches: kernel {win[0]:.4f} ms, "
-          f"torch.linalg.eigh {win[1]:.4f} ms, bound {win[2]:.6f} ms, plain "
-          f"{win[3]:.3f} ms", flush=True)
+    time_windows(jc, batches, label)
 
     # EighComputation: the dc chain path in eigenvector mode (6 windows)
     label = f"EighComputation N={N} (model function, keep_top_k({TOP_K}))"
@@ -1224,10 +1257,7 @@ def phase_generic(jc):
         w = deflate.ce_null_complement(deflate.ce_probs(model_fn, X, params))
         ev_d, V_d = eigdc.eigh_dc(gram_d)
     check_eigenpairs(label, ev, leaves, paths, vt, w, gram_d, ev_d, V_d)
-    win = time_windows(jc, batches, label)
-    print(f"{label}, its {launches[label]} window launches: kernel {win[0]:.4f} ms, "
-          f"torch.linalg.eigh {win[1]:.4f} ms, bound {win[2]:.6f} ms, plain "
-          f"{win[3]:.3f} ms", flush=True)
+    time_windows(jc, batches, label)
 
     # engine agreement: the generic and the tapped f32 Grams of the same batch
     with full_f32():
@@ -1415,7 +1445,8 @@ def phase_streamed(jc):
     Gram against the in-memory one, ``eigvalsh_streamed`` at N=128 and
     N=512 (peak memory, stages), ``eigh_topk_streamed`` and
     ``newton_step_streamed`` at N=128 against float64 of their own Grams.
-    Returns the launches per path."""
+    Returns the launches per path, the call times and the N=512 spectrum's
+    window totals (:func:`time_windows`)."""
     import torch
 
     import vivit_tpu_torch as vtt
@@ -1467,10 +1498,7 @@ def phase_streamed(jc):
     check(launches[label] == 2, f"{label}: expected 2 Jacobi launches, got {launches[label]}")
     check(not bool(info["tripped"]), f"{label}: the eigdc guard tripped")
     check_spectrum(label, evals, gram_d, N)
-    win = time_windows(jc, batches, label)
-    print(f"{label}, its {launches[label]} window launches: kernel {win[0]:.4f} ms, "
-          f"torch.linalg.eigh {win[1]:.4f} ms, bound {win[2]:.6f} ms, plain "
-          f"{win[3]:.3f} ms", flush=True)
+    time_windows(jc, batches, label)
     times[label] = host_ms(spectrum_small)
     del gram_d
 
@@ -1493,10 +1521,7 @@ def phase_streamed(jc):
     check(not bool(info["tripped"]), f"{label}: the eigdc guard tripped")
     check_eigenpairs(label, ev, leaves, paths, vt, w, gram_d, ev_d, V_d)
     del vt, leaves, V_d
-    win = time_windows(jc, batches, label)
-    print(f"{label}, its {launches[label]} window launches: kernel {win[0]:.4f} ms, "
-          f"torch.linalg.eigh {win[1]:.4f} ms, bound {win[2]:.6f} ms, plain "
-          f"{win[3]:.3f} ms", flush=True)
+    time_windows(jc, batches, label)
     times[label] = host_ms(eigenpairs)
 
     # newton_step_streamed N=128, k=10, damping 1: against the pipeline
@@ -1535,10 +1560,7 @@ def phase_streamed(jc):
     failed = [f"{k} at {v:.2f} of its bar" for k, (v, gated) in ratios.items()
               if gated and v > 1.0]
     check(not failed, f"{label}: " + "; ".join(failed))
-    win = time_windows(jc, batches, label)
-    print(f"{label}, its {launches[label]} window launches: kernel {win[0]:.4f} ms, "
-          f"torch.linalg.eigh {win[1]:.4f} ms, bound {win[2]:.6f} ms, plain "
-          f"{win[3]:.3f} ms", flush=True)
+    time_windows(jc, batches, label)
     times[label] = host_ms(newton)
     del step, in_memory, step_o, derivs
 
@@ -1553,16 +1575,19 @@ def phase_streamed(jc):
     untripped(spectrum_large, label)  # warm-up
     (((evals, gram_d), peak), launches[label]) = launches_of(jc, lambda: peak_of(
         lambda: streamed_gram_of(lambda: untripped(spectrum_large, label))))
-    with full_f32():
-        _, info = eigdc.eigvalsh_dc(gram_d, return_info=True)
+    with full_f32():  # the entry's solve again, its batches recorded
+        (_, info), batches = recording_eigh(
+            lambda: eigdc.eigvalsh_dc(gram_d, return_info=True))
     print(f"{label}: Jacobi launches {launches[label]}, guard tripped {bool(info['tripped'])}, "
           f"peak memory {peak / 1e9:.3f} GB above what the call started with "
           f"(bar: the in-memory deflated Vᵀ, {STREAMED_PEAK_BAR / 1e9:.2f} GB)", flush=True)
-    check(launches[label] == 0, f"{label}: expected 0 Jacobi launches, got {launches[label]}")
+    check(launches[label] == 4, f"{label}: expected 4 Jacobi launches, got {launches[label]}")
     check(not bool(info["tripped"]), f"{label}: the eigdc guard tripped")
     check(peak < STREAMED_PEAK_BAR, f"{label}: peak {peak / 1e9:.2f} GB")
+    # eigh's ~30 ms per window batch: one call per run, median of 5
+    windows = time_windows(jc, batches, label, reps=5, calls=1)
     check_spectrum(label, evals, gram_d, n)
-    del gram_d
+    del gram_d, batches
     times[label] = host_ms(spectrum_large)
     with timed(chunked, "_vt_single_factor") as slice_ev, \
             timed(chunked, "_pair_block") as block_ev, timed(eig, "full_eigh") as eig_ev:
@@ -1595,7 +1620,7 @@ def phase_streamed(jc):
     check(rel <= ENGINE_BAR, f"N={n}: streamed Gram {rel:.2e} off the in-memory one")
     del g_str, g_mem
     torch.cuda.empty_cache()
-    return launches, times
+    return launches, times, windows
 
 
 def phase_extensions():
@@ -1867,15 +1892,6 @@ def data_parallel_gates(jc):
               f"{label}: expected {expect} Jacobi launches, got {launches[label]}")
         check(info is None or not bool(info["tripped"]), f"{label}: the eigdc guard tripped")
 
-    def windows(label, batches, timed=True):
-        """The kernel on the solve's windows: timed on the paths of PERF.md's
-        kernel table, checked alone on the others."""
-        win = time_windows(jc, batches, label, timed)
-        if timed:
-            print(f"{label}, its {launches[label]} window launches: kernel {win[0]:.4f} ms, "
-                  f"torch.linalg.eigh {win[1]:.4f} ms, bound {win[2]:.6f} ms, plain "
-                  f"{win[3]:.3f} ms", flush=True)
-
     def timed_call(label, call):
         # the builders' calls ran just before: no extra warm-up
         times[label] = host_ms(call, warmup=False)
@@ -1900,7 +1916,7 @@ def data_parallel_gates(jc):
     print(f"{label} vs eigvalsh_structured on the same batch: max err/tol {ratio:.3f}",
           flush=True)
     check(ratio <= 1.0, f"{label}: {ratio:.2f} of the eigenvalue bar off eigvalsh_structured")
-    windows(label, batches)
+    time_windows(jc, batches, label)
     timed_call(label, lambda: fn(X, y))
 
     # its collectives, bare (world size 1: copies on the card, no link)
@@ -1929,7 +1945,7 @@ def data_parallel_gates(jc):
     report(label, 2, info)
     check_spectrum(label, evals, grams[0][1], N)
     del grams
-    windows(label, batches, timed=False)
+    time_windows(jc, batches, label, timed=False)
     timed_call(label, lambda: fn(params, X, y))
 
     # eigh_dp: the k_top path against float64, the criterion path
@@ -1945,7 +1961,7 @@ def data_parallel_gates(jc):
         ev_d, V_d = eigdc.eigh_dc(gram_d)
     check_eigenpairs(label, ev, [vecs[p] for p in paths], paths, vt, None, gram_d, ev_d, V_d)
     del vt, vecs, grams, gram_d, V_d
-    windows(label, batches, timed=False)
+    time_windows(jc, batches, label, timed=False)
     timed_call(label, lambda: fn(params, X, y))
     crit = par.eigh_dp(model_fn, loss, None, criterion=vtt.keep_top_k(TOP_K), solver="dc",
                        **generic)
@@ -1975,7 +1991,7 @@ def data_parallel_gates(jc):
           "err/tol: " + ", ".join(f"{k} {v:.3f}" for k, v in ratios.items()), flush=True)
     bad = [f"{k} at {v:.2f} of its bar" for k, v in ratios.items() if v > 1.0]
     check(not bad, f"{label}: " + "; ".join(bad))
-    windows(label, batches, timed=False)
+    time_windows(jc, batches, label, timed=False)
     timed_call(label, lambda: fn(params, X, y))
 
     # newton_step_dp_structured against float64 on its own Gram
@@ -2011,7 +2027,7 @@ def data_parallel_gates(jc):
     check(not bad, f"{label}: " + "; ".join(bad))
     check(dev <= DP_STEP_BAR, f"{label}: {dev:.2e} off newton_step_structured")
     del vts, vt, grams, gram, grads, v_t_g, step_o, single
-    windows(label, batches)
+    time_windows(jc, batches, label)
     timed_call(label, lambda: fn(X, y))
 
     # eigvalsh_streamed_dp: the stream's backward passes; its f32 Gram
@@ -2044,7 +2060,7 @@ def data_parallel_gates(jc):
           f"(bar {ENGINE_BAR:.0e})", flush=True)
     check(rel <= ENGINE_BAR, f"gram_streamed_shard: {rel:.2e} off the in-memory Gram")
     del g_str, g_mem
-    windows(label, batches)
+    time_windows(jc, batches, label)
     timed_call(label, lambda: fn(params, X, y))
 
     # train_step_dp: three steps lower the loss on the batch
@@ -2099,18 +2115,16 @@ def main():
         launches = phase_main_path(jc)
         model = port_model()
         small, evecs_launches, (gram_d, _, V_d), batches = phase_eigenpairs(jc, model, N, 6)
-        win = time_windows(jc, batches, f"eigh_topk N={N}")
-        print(f"eigh_topk N={N}, the {evecs_launches} window launches of one solve: kernel "
-              f"{win[0]:.4f} ms, torch.linalg.eigh {win[1]:.4f} ms, bound {win[2]:.6f} ms, "
-              f"plain {win[3]:.3f} ms", flush=True)
+        time_windows(jc, batches, f"eigh_topk N={N}")
         refine_launches = phase_refine(jc, gram_d, V_d)
-        spectrum_launches, spectrum = phase_spectrum_large(jc, model)
-        large, large_launches, _, _ = phase_eigenpairs(jc, model, N_LARGE, 0)
-        phase_times(jc, model, small, large, spectrum)
+        spectrum_launches, spectrum, spectrum_win = phase_spectrum_large(jc, model, 4)
+        large, large_launches, _, batches = phase_eigenpairs(jc, model, N_LARGE, 6)
+        large_win = time_windows(jc, batches, f"eigh_topk N={N_LARGE}", reps=5, calls=1)
+        phase_times(model, small, large, spectrum)
         newton_launches = phase_newton(jc, model)
         del model
         generic_launches = phase_generic(jc)
-        streamed_launches, times = phase_streamed(jc)
+        streamed_launches, times, streamed_win = phase_streamed(jc)
         times.update(phase_extensions())
         times.update(phase_matrix_free())
         dp_launches, dp_times = phase_data_parallel(jc)
@@ -2133,23 +2147,29 @@ def main():
         **generic_launches, **streamed_launches, **dp_launches}), flush=True)
 
     t = [timing[s] for s in HEADLINE_SHAPES]
+    kernel = {"name": "jacobi_eigh", "route": "cuda",
+              "source": "vivit_tpu_torch/csrc/jacobi.cu",
+              "replaces": "vivit_tpu/kernels/jacobi_pallas.py:178"}
+    # times: the sums over the window launches of one solve of the path;
+    # the bound counts the sweeps each matrix ran
     kernels = [{
-        "name": "jacobi_eigh",
-        "route": "cuda",
-        "source": "vivit_tpu_torch/csrc/jacobi.cu",
-        "replaces": "vivit_tpu/kernels/jacobi_pallas.py:178",
+        **kernel,
+        "path": f"eigvalsh_structured N={N}",
         "launches": launches,
         "max_abs_err": max_err,
         # the most sweeps a matrix of the two window batches ran
         "sweeps": max(x[5] for x in t),
-        # times: the sum over the two window launches of one n=1152 solve;
-        # the bound counts the sweeps each matrix ran
         "ms": sum(x[0] for x in t),
         "plain_ms": sum(x[1] for x in t),
         "bound_ms": sum(x[3] for x in t),
         "bound_by": t[0][4],
         "library_ms": sum(x[2] for x in t),
-    }]
+    }] + [{**kernel, "path": path, **win, "launches": n_launches}
+          for path, win, n_launches in (
+              (f"eigvalsh_structured N={N_LARGE}", spectrum_win, spectrum_launches),
+              (f"eigh_topk N={N_LARGE}", large_win, large_launches),
+              (f"eigvalsh_streamed N={N_LARGE}", streamed_win,
+               streamed_launches[f"eigvalsh_streamed N={N_LARGE}"]))]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from vivit_tpu.kernels import jacobi as jax_jacobi
 from vivit_tpu.kernels.jacobi_pallas import batched_eigh_jacobi as pallas_jacobi
 
 import vivit_tpu_torch.eigdc as port_eigdc
@@ -130,14 +131,19 @@ def test_round_robin_meets_every_pair_once(m):
 
 
 def test_batched_eigh_routes_windows_to_jacobi():
-    """The envelope sends the headline windows to the Jacobi path and the
-    ladder leaves and the bottom block to the vendor eigensolver."""
+    """The H100's envelope sends the headline windows, the N=512 strip
+    windows (b·m > 2048, outside the TPU's envelope) and single matrices of
+    the compiled sizes to the Jacobi path, and the ladder leaves, the bottom
+    block, float64 and sizes the kernel was not compiled for to the vendor
+    eigensolver."""
     assert jacobi_supported((37, 32, 32), torch.float32)
     assert jacobi_supported((36, 32, 32), torch.float32)
+    assert jacobi_supported((73, 64, 64), torch.float32)
+    assert jacobi_supported((1, 48, 48), torch.float32)
     assert not jacobi_supported((1, 96, 96), torch.float32)
     assert not jacobi_supported((16, 150, 150), torch.float32)
     assert not jacobi_supported((37, 32, 32), torch.float64)
-    assert not jacobi_supported((65, 32, 32), torch.float32)  # b·m > 2048
+    assert not jacobi_supported((37, 80, 80), torch.float32)
 
     A = torch.tensor(_random_sym(37, 32, seed=0))
     for got, want in zip(batched_eigh(A), batched_eigh_jacobi_plain(A)):
@@ -146,6 +152,42 @@ def test_batched_eigh_routes_windows_to_jacobi():
         A = torch.tensor(_random_sym(b, m, seed=m))
         for got, want in zip(batched_eigh(A), torch.linalg.eigh(A)):
             assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("shape,kernel", [
+    ((438, 64, 64), True),
+    ((4096, 32, 32), True),
+    ((8, 421, 421), False),
+    ((16, 150, 150), False),
+    ((1, 714, 714), False),
+    ((2, 1024, 1024), False),
+    ((73, 64, 32), False),
+], ids=lambda x: str(x))
+def test_jacobi_envelope(shape, kernel):
+    """The kernel takes f32 ``[b, m, m]`` of its compiled sizes at any b
+    (it beat ``torch.linalg.eigh`` at every b measured on the H100); the
+    paths' leaves and any other shape take one batched call."""
+    assert jacobi_supported(shape, torch.float32) == kernel
+
+
+LARGE_SHAPES = [(2, 256), (3, 272)]
+
+
+@pytest.mark.parametrize("b,m", LARGE_SHAPES, ids=[f"{b}x{m}" for b, m in LARGE_SHAPES])
+def test_large_blocks_match_jax_map(b, m):
+    """At blocks the JAX package sends to its ``lax.map`` of single solves
+    (b > 1, m >= its ``_MAP_MIN_K``), the port's one batched call is the
+    same function: seeded numpy inputs with eigenvalues 2/m apart,
+    eigenvalues at BASELINE's bar (rtol 1e-4, atol 5e-6·λmax), eigenvectors
+    up to sign within 1e-4 (f32 at that gap)."""
+    assert m >= jax_jacobi._MAP_MIN_K
+    A = _separated(b, m, seed=11 + m)
+    ev, V = (t.numpy() for t in batched_eigh(torch.tensor(A)))
+    ev_j, V_j = (np.asarray(t) for t in jax_jacobi.batched_eigh(jnp.asarray(A)))
+    lmax = np.abs(ev_j).max(axis=-1, keepdims=True)
+    assert (np.abs(ev - ev_j) <= 5e-6 * lmax + 1e-4 * np.abs(ev_j)).all()
+    overlap = np.abs(np.einsum("bki,bkj->bij", V_j, V))
+    assert np.abs(overlap - np.eye(m)).max() < 1e-4
 
 
 def test_cpu_tensor_takes_plain_version():
