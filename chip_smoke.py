@@ -104,7 +104,19 @@ Phases, each printed as it runs:
     against the in-memory ``sharded_gram``); three ``train_step_dp`` steps
     lowering the loss; every dc solve's window batches through the kernel
     and its plain version; each builder's call time.
-14. The call times of the new entries, the launches of each path, a JSON
+14. **eigh_dc's routes** (:data:`ROUTES`) on the deflated Grams of phases
+    4 and 6: ``ladder=False`` (the recursive chain; 1152², both modes),
+    ``deskew_terms=4`` (the ladder's 4-term root; 1152²), ``strip=1024``
+    (the strip below 1536; 1152²), ``strip=0`` (the deep-map root, 4-term;
+    4608²) and the forced trip of ``tests/test_guard_info.py`` (1152², both
+    modes): each route's Jacobi launches (2·Σ ``wj_iters``), its guarded
+    result against float64, its raw (``guard=None``) violations and the trip
+    flag (the forced trip must trip), its time beside the default route's
+    (CUDA events, median of 5 calls each, in turns), its window batches
+    through the kernel and its plain version (bit-equal, timed), and the
+    kernel at sweeps 1, 4 and 12 on its first window batch of each shape,
+    bit-equal to its plain version with no matrix past the cap.
+15. The call times of the new entries, the launches of each path, a JSON
     line of the kernels, then ``{"ok": true, "device": ...}`` last.
 
 Any failed check exits non-zero.  Without a CUDA device it exits 2 and
@@ -2089,6 +2101,147 @@ def data_parallel_gates(jc):
     return launches, times
 
 
+# eigh_dc's routes beyond its two defaults, each with the Jacobi launches of
+# its polish (2·Σ wj_iters) per mode: (name, Gram, keywords, {eigenvectors:
+# launches}).  "small" is N=128's Gram-level deflated 1152² Gram, "large"
+# N=512's 4608² one.
+ROUTES = [
+    ("ladder=False", "small", {"ladder": False}, {False: 2, True: 6}),
+    ("deskew_terms=4", "small", {"deskew_terms": 4}, {False: 2}),
+    ("strip=1024", "small", {"strip": 1024}, {False: 4}),
+    ("strip=0", "large", {"strip": 0}, {False: 2}),
+    # the degraded keywords of tests/test_guard_info.py: the guard must trip
+    ("forced trip", "small", {"sign_iters_root": (1, 1), "sign_iters": (1, 1),
+                              "orth_iters": (1, 1), "ns_global": 0,
+                              "dm_iters": (0, 0, 0), "kpm_degree": 8},
+     {False: 2, True: 6}),
+]
+ROUTE_SWEEPS = (1, 4, 12)
+
+
+def paired_times(fn, other, reps=5):
+    """CUDA-event times of one call of ``fn`` and of ``other``, ``reps``
+    each, in turns (``fn``, ``other``, ``other``, ``fn``, ...) after one
+    warm-up call of each."""
+    fn()
+    other()
+    times = ([], [])
+    for i in range(reps):
+        for k in ((0, 1) if i % 2 == 0 else (1, 0)):
+            times[k].append(cuda_once((fn, other)[k])[1])
+    return times
+
+
+def spectrum_ratio(got, ref):
+    """``(max err/tol, violations)`` of eigenvalues against float64 at
+    BASELINE's bars."""
+    err = (got.double() - ref).abs()
+    tol = ATOL * ref.abs().max() + RTOL * ref.abs()
+    return (err / tol).max().item(), int((err > tol).sum())
+
+
+def check_route_result(label, G, ref, ev, V):
+    """The eigenvalue bar against float64; with vectors, the full basis's
+    orthonormality and similarity defect (the bars of
+    :func:`check_eigenpairs`)."""
+    import torch
+
+    ratio, bad = spectrum_ratio(ev, ref)
+    check(bad == 0, f"{label}: {bad} violations of float64 (max err/tol {ratio:.2f})")
+    line = f"max err/tol {ratio:.3f}"
+    if V is not None:
+        G64, V64, n = G.double(), V.double(), G.shape[0]
+        eye = torch.eye(n, dtype=torch.float64, device=G.device)
+        orth = (torch.linalg.matrix_norm(V64.T @ V64 - eye) / n ** 0.5).item()
+        defect = (torch.linalg.matrix_norm(G64 @ V64 - V64 * ev.double())
+                  / torch.linalg.matrix_norm(G64)).item()
+        check(orth < 1e-4, f"{label}: basis orthonormality {orth:.2e}")
+        check(defect < 5e-4, f"{label}: basis defect {defect:.2e}")
+        line += f", ‖VᵀV−I‖_F/√n {orth:.2e}, ‖GV−VΛ‖_F/‖G‖_F {defect:.2e}"
+    return line
+
+
+def check_route_sweeps(jc, batches, label):
+    """The kernel at each of ``ROUTE_SWEEPS`` on the route's first window
+    batch of each shape, against its plain version with the same cap: equal
+    to the bit, and no matrix past the cap."""
+    import torch
+
+    from vivit_tpu_torch.kernels.jacobi import jacobi_supported
+
+    seen = set()
+    for A in batches:
+        if not jacobi_supported(A.shape, A.dtype) or A.shape in seen:
+            continue
+        seen.add(A.shape)
+        ran = []
+        for s in ROUTE_SWEEPS:
+            got = jc.batched_eigh_jacobi_cuda(A, return_sweeps=True, sweeps=s)
+            want = jc.batched_eigh_jacobi_plain(A, exit_early=True, return_sweeps=True,
+                                                sweeps=s)
+            check(all(torch.equal(g, w) for g, w in zip(got, want)),
+                  f"{label} window {list(A.shape)}: kernel and plain differ at sweeps={s}")
+            check(int(got[2].max()) <= s, f"{label}: {int(got[2].max())} sweeps past {s}")
+            ran.append(f"{s}: {int(got[2].min())}-{int(got[2].max())}")
+        print(f"{label} window {list(A.shape)}: kernel bit-equal to its plain version "
+              f"at sweeps {ROUTE_SWEEPS}; sweeps run {', '.join(ran)}", flush=True)
+
+
+def phase_routes(jc, grams):
+    """``eigh_dc``'s routes beyond its defaults (:data:`ROUTES`) on the
+    deflated Grams ``grams`` (``{"small": 1152², "large": 4608²}``): launches,
+    the guarded result against float64, the raw (``guard=None``) violations
+    and the trip flag, the time beside the default route's, and the window
+    batches through the kernel and its plain version.  Returns ``(launches
+    per route, the kernels-line totals per route)``."""
+    import torch
+
+    from vivit_tpu_torch import eigdc
+
+    refs = {k: torch.linalg.eigvalsh(G.double()) for k, G in grams.items()}
+    launches, windows = {}, {}
+
+    def quiet(fn):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")  # the trip is read from info
+            return fn()
+
+    for name, size, kw, modes in ROUTES:
+        G, ref = grams[size], refs[size]
+        n = G.shape[0]
+        for vectors, expect in modes.items():
+            label = f"eigh_dc {name} {n}² {'eigenpairs' if vectors else 'eigenvalues'}"
+
+            def solve(**extra):
+                return eigdc.eigh_dc(G, eigenvectors=vectors, **kw, **extra)
+
+            ((ev, V, info), batches), count = launches_of(
+                jc, lambda: quiet(lambda: recording_eigh(lambda: solve(return_info=True))))
+            tripped = bool(info["tripped"])
+            check(count == expect, f"{label}: {count} Jacobi launches, expected {expect}")
+            line = check_route_result(label, G, ref, ev, V)
+            raw_ratio, raw_bad = spectrum_ratio(quiet(lambda: solve(guard=None))[0], ref)
+            if name == "forced trip":
+                check(tripped, f"{label}: the guard did not trip")
+            t, t_default = paired_times(
+                lambda: quiet(solve),
+                lambda: quiet(lambda: eigdc.eigh_dc(G, eigenvectors=vectors)))
+            print(f"{label}: Jacobi launches {count}; guard tripped {tripped} (bound "
+                  f"{float(info['bound']):.2e}, orth {float(info['orth']):.2e}); guarded "
+                  f"result vs float64 {line}; raw (guard=None) {raw_bad}/{n} violations, "
+                  f"max err/tol {raw_ratio:.3f}; {spread(t)} against the default route's "
+                  f"{spread(t_default)} (CUDA events, median [min-max] of 5 calls each, "
+                  "in turns)", flush=True)
+            large = size == "large"
+            totals = time_windows(jc, batches, label, reps=5 if large else 30,
+                                  calls=1 if large else 10)
+            check(totals["max_abs_err"] == 0.0,
+                  f"{label}: kernel and plain differ by {totals['max_abs_err']:.2e}")
+            check_route_sweeps(jc, batches, label)
+            launches[label], windows[label] = count, totals
+    return launches, windows
+
+
 def main():
     import torch
 
@@ -2118,7 +2271,8 @@ def main():
         time_windows(jc, batches, f"eigh_topk N={N}")
         refine_launches = phase_refine(jc, gram_d, V_d)
         spectrum_launches, spectrum, spectrum_win = phase_spectrum_large(jc, model, 4)
-        large, large_launches, _, batches = phase_eigenpairs(jc, model, N_LARGE, 6)
+        large, large_launches, (gram_large, _, _), batches = phase_eigenpairs(
+            jc, model, N_LARGE, 6)
         large_win = time_windows(jc, batches, f"eigh_topk N={N_LARGE}", reps=5, calls=1)
         phase_times(model, small, large, spectrum)
         newton_launches = phase_newton(jc, model)
@@ -2129,6 +2283,8 @@ def main():
         times.update(phase_matrix_free())
         dp_launches, dp_times = phase_data_parallel(jc)
         times.update(dp_times)
+        route_launches, route_win = phase_routes(jc, {"small": gram_d,
+                                                      "large": gram_large})
     except SmokeFailure as exc:
         print(f"chip_smoke: FAIL: {exc}", file=sys.stderr)
         return 1
@@ -2144,7 +2300,8 @@ def main():
         f"eigh_topk N={N_LARGE}": large_launches,
         f"newton_step_structured N={N} (lobpcg)": newton_launches["lobpcg"],
         f"newton_step_structured N={N} (dc)": newton_launches["dc"],
-        **generic_launches, **streamed_launches, **dp_launches}), flush=True)
+        **generic_launches, **streamed_launches, **dp_launches, **route_launches}),
+        flush=True)
 
     t = [timing[s] for s in HEADLINE_SHAPES]
     kernel = {"name": "jacobi_eigh", "route": "cuda",
@@ -2169,7 +2326,9 @@ def main():
               (f"eigvalsh_structured N={N_LARGE}", spectrum_win, spectrum_launches),
               (f"eigh_topk N={N_LARGE}", large_win, large_launches),
               (f"eigvalsh_streamed N={N_LARGE}", streamed_win,
-               streamed_launches[f"eigvalsh_streamed N={N_LARGE}"]))]
+               streamed_launches[f"eigvalsh_streamed N={N_LARGE}"]))] + [
+        {**kernel, "path": path, **win, "launches": route_launches[path]}
+        for path, win in route_win.items()]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -14,10 +14,11 @@ mixed-dtype repairs it needs, and the ``eigh_dc`` knobs.
 * ``precision.dot_t`` and ``ConvVT``'s products on bf16 blocks (f32 results,
   the upcast exact; the bf16-operand route unchanged).
 * ``eigh_dc``/``eigvalsh_dc``/``full_eigh``/``refine_eigh`` accept ``key``
-  and ``dm_iters``; a JAX knob the port does not have raises ``TypeError``
-  naming it.
+  and ``dm_iters``; a keyword the JAX ``eigh_dc`` does not have raises
+  ``TypeError`` naming it.
 """
 
+import inspect
 import warnings
 
 import jax
@@ -27,6 +28,7 @@ import pytest
 import torch
 
 import vivit_tpu as vt
+from vivit_tpu.eigdc import eigh_dc as jax_eigh_dc
 from vivit_tpu.structured import newton_step_structured as jax_newton_step
 
 import vivit_tpu_torch as vtt
@@ -241,9 +243,12 @@ def test_eigh_dc_knobs():
     assert float(res) < 1e-4
 
 
-@pytest.mark.parametrize("knob", ["base", "chain", "ladder", "strip", "kpm_degree",
-                                  "tail_merge"])
-def test_eigh_dc_absent_knob_raises_type_error(knob):
+@pytest.mark.parametrize("knob", ["kpm", "sign_root", "orth", "terms", "generator", "sweeps"])
+def test_eigh_dc_unknown_keyword_raises_type_error(knob):
+    """A keyword the JAX ``eigh_dc`` does not have raises ``TypeError``
+    naming it, also where it names a key of the internal configuration
+    (``kpm``, ``sign_root``, ``orth``) or a knob of another function."""
+    assert knob not in inspect.signature(jax_eigh_dc).parameters
     H = _psd(200, 2)
     with pytest.raises(TypeError, match=knob):
         eigh_dc(H, **{knob: 1})

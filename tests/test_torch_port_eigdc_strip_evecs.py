@@ -15,7 +15,14 @@ import torch
 from vivit_tpu.eigdc import _make_cfg as jax_make_cfg
 from vivit_tpu.eigdc import _tree as jax_tree
 
-from vivit_tpu_torch.eigdc import _deskew, _flat_leaves, _power_norm, _tree, eigh_dc
+from vivit_tpu_torch.eigdc import (
+    _deskew,
+    _flat_leaves,
+    _make_cfg,
+    _power_norm,
+    _tree,
+    eigh_dc,
+)
 
 RTOL, ATOL = 1e-4, 5e-6
 N = 1536
@@ -94,7 +101,8 @@ def test_tree_with_real_splits_matches_jax_and_f64():
     H = torch.tensor(A)
     gen = torch.Generator().manual_seed(0)
     B = _deskew(H, _power_norm(H, gen), gen)
-    masks, Q = _tree(B[None], torch.tensor([float(k)]), torch.eye(k)[None], gen, base)
+    masks, Q = _tree(B[None], torch.tensor([float(k)]), torch.eye(k)[None], gen,
+                     _make_cfg(base=base))
     assert Q.shape == (4, k, 150) and masks.shape == (4, 150)
     assert int(masks.sum()) == k
     Q, mask = _flat_leaves(masks, Q)

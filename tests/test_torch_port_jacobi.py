@@ -315,3 +315,46 @@ def test_bound_counts_the_sweeps_run():
     assert by == "operations" and half == pytest.approx(full / 2)
     none, by0 = bound_ms(37, 32, 0, 67e12, 3.35e12)
     assert by0 == "bytes" and none > 0
+
+
+SWEEP_CASES = [(s, b, m) for s in (8, 12) for b, m in ((4, 32), (2, 64))]
+
+
+@pytest.mark.parametrize("sweeps,b,m", SWEEP_CASES,
+                         ids=[f"{s}-sweeps-{b}x{m}" for s, b, m in SWEEP_CASES])
+def test_plain_matches_pallas_at_sweeps(sweeps, b, m):
+    """``sweeps`` caps the plain version's loop as it caps the Pallas
+    kernel's.  Held together where both have converged (eigenvalues spaced
+    2/m apart converge in 8 sweeps to f32, though the exact exit rule needs
+    9-10): the two orderings differ only before that."""
+    A = _separated(b, m, seed=sweeps + m)
+    ev, V, ran = (t.numpy() for t in batched_eigh_jacobi_plain(
+        torch.tensor(A), return_sweeps=True, sweeps=sweeps))
+    # the exact exit needs 9-10 sweeps: 8 is the cap, 12 is not reached
+    assert (ran == 8).all() if sweeps == 8 else (ran < sweeps).all()
+    ev_p, V_p = pallas_jacobi(jnp.asarray(A), sweeps=sweeps)
+    norm = np.abs(np.linalg.eigvalsh(A.astype(np.float64))).max(axis=-1)
+    assert (np.abs(ev - np.asarray(ev_p)).max(axis=-1) <= 1e-5 * norm).all()
+    overlap = np.abs(np.einsum("bki,bkj->bij", np.asarray(V_p), V))
+    assert np.abs(overlap - np.eye(m)).max() < 1e-4
+    _check_f64_bars(A, ev, V)
+    for got, want in zip(batched_eigh_jacobi(torch.tensor(A), sweeps=sweeps),
+                         batched_eigh_jacobi_plain(torch.tensor(A), sweeps=sweeps)):
+        assert torch.equal(got, want)
+
+
+def test_plain_runs_one_sweep():
+    """At ``sweeps=1`` every matrix runs one sweep: every pair rotated once,
+    the result short of the converged one, with or without the exit rule."""
+    A = torch.tensor(_random_sym(3, 32, seed=11))
+    one = batched_eigh_jacobi_plain(A, return_sweeps=True, sweeps=1)
+    assert torch.equal(one[2], torch.ones(3, dtype=torch.int32))
+    for got, want in zip(batched_eigh_jacobi_plain(A, exit_early=True, return_sweeps=True,
+                                                   sweeps=1), one):
+        assert torch.equal(got, want)
+    two = batched_eigh_jacobi_plain(A, sweeps=2)
+    assert not torch.equal(one[0], two[0])
+    ref = torch.linalg.eigvalsh(A.double())
+    assert (one[0].double() - ref).abs().max() > (two[0].double() - ref).abs().max()
+    with pytest.raises(ValueError, match="sweep"):
+        batched_eigh_jacobi_plain(A, sweeps=0)

@@ -17,6 +17,8 @@ Gram matrices use the flat index ``c·S + n``.  The projections run in full
 f32.
 """
 
+from typing import Optional
+
 import torch
 
 from vivit_tpu_torch.precision import full_f32
@@ -52,17 +54,18 @@ def deflate_gram(gram: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def deflated_eigvalsh(gram: torch.Tensor, probs: torch.Tensor, *,
-                      backend: str = "xla", return_info: bool = False):
+                      backend: str = "xla", key: Optional[int] = None,
+                      return_info: bool = False):
     """Full ascending spectrum of a CE Gram through exact null deflation:
     the ``S`` structural zeros as exact ``0.0``, the other ``(C−1)·S``
-    eigenvalues from the deflated Gram (``backend`` as in
-    :func:`vivit_tpu_torch.eig.full_eigh`; ``return_info`` adds its guard
-    info)."""
+    eigenvalues from the deflated Gram (``backend`` and the int ``key`` as
+    in :func:`vivit_tpu_torch.eig.full_eigh`; ``return_info`` adds its
+    guard info)."""
     from vivit_tpu_torch.eig import full_eigh
 
     w = ce_null_complement(probs)
     evals_d, _, info = full_eigh(deflate_gram(gram, w), backend=backend,
-                                 eigenvectors=False, return_info=True)
+                                 eigenvectors=False, key=key, return_info=True)
     evals = torch.sort(torch.cat([evals_d.new_zeros(probs.shape[0]), evals_d])).values
     return (evals, info) if return_info else evals
 
@@ -86,20 +89,21 @@ def lift_gram_vecs(vecs_d: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def deflated_eigh(gram: torch.Tensor, probs: torch.Tensor, *,
-                  backend: str = "xla", return_info: bool = False):
+                  backend: str = "xla", key: Optional[int] = None,
+                  return_info: bool = False):
     """Full ascending eigenpairs of a CE Gram through exact null deflation.
 
     The ``S`` null directions come back as exact zeros with their analytic
     eigenvectors (:func:`ce_null_vectors`); the other pairs are the deflated
-    Gram's, lifted (:func:`lift_gram_vecs`).  ``backend`` as in
-    :func:`vivit_tpu_torch.eig.full_eigh`; ``return_info`` adds its guard
-    info.
+    Gram's, lifted (:func:`lift_gram_vecs`).  ``backend`` and the int
+    ``key`` as in :func:`vivit_tpu_torch.eig.full_eigh`; ``return_info``
+    adds its guard info.
     """
     from vivit_tpu_torch.eig import full_eigh
 
     w = ce_null_complement(probs)
     evals_d, evecs_d, info = full_eigh(deflate_gram(gram, w), backend=backend,
-                                       eigenvectors=True, return_info=True)
+                                       eigenvectors=True, key=key, return_info=True)
     evals = torch.cat([evals_d.new_zeros(probs.shape[0]), evals_d])
     evecs = torch.cat([ce_null_vectors(probs), lift_gram_vecs(evecs_d, w)], dim=1)
     order = torch.argsort(evals, stable=True)  # the null block first, in order

@@ -12,7 +12,7 @@ f32, built from matrix products:
    valid-count median; ``sign(B − σI)`` comes from polar-express
    iterations, and the children are compressed through range-finder panels
    ``orth(P·B·Ω)``.
-3. **Basis**, by size:
+3. **Basis**, by size (with the default keywords):
 
    * ``n < 1536``, the chain path (:func:`_ladder`): the bottom half below
      the first ``σ`` is re-compressed against ``H`` (zoom) and re-de-skewed;
@@ -45,12 +45,17 @@ f32, built from matrix products:
 Random draws come from one ``torch.Generator`` on the matrix's device
 (seed 0 unless one is given), so results match the JAX package to
 tolerance, not bit for bit.  All matmuls run in full f32, including those
-the JAX package demotes to ``HIGH`` on the strip path.  The tuning
-constants are the JAX package's defaults (its ``_make_cfg`` and the
-per-mode schedule of its ``eigh_dc``); the port has one configuration, so
-they are constants.
+the JAX package demotes to ``HIGH`` on the strip path or under a precision
+knob.  :func:`eigh_dc` takes every tuning knob of the JAX package's, with
+its defaults, and resolves the unset ones per mode and path as it does:
+the basis knobs into one dict (:func:`_make_cfg`, the JAX key set), the
+polish knobs into another (:func:`_polish`).  Besides the two default
+bases, the knobs reach the recursive chain (``ladder=False``) and the
+pre-strip "deep-map" root (``strip=0``), whose de-skew takes a fourth
+term at ``n ≥ 2048``.
 """
 
+import inspect
 import math
 import warnings
 from typing import Optional, Tuple
@@ -70,15 +75,8 @@ _SIGMA_FLOOR = 0.04
 _MARGIN = 64
 _PAD_SLACK = 32
 _STRIP_MIN = 1536
-# leaf size (chain path), zoom depth cap, (polar-express, Newton-Schulz)
-# iterations of the root sign, the other signs and the panel
-# orthonormalization, KPM degree
-_BASE = 160
-_CHAIN = 6
-_SIGN_ROOT = (9, 4)
-_SIGN = (9, 4)
-_ORTH = (8, 3)
-_KPM = 64
+# the JAX package's precision names; the port runs every one in full f32
+_PRECISIONS = (None, "highest", "high")
 
 
 def _eye(k, like):
@@ -135,8 +133,12 @@ def _orth_px(Y, iters_px: int = 8, iters_ns: int = 3):
     return Y
 
 
-def _deskew(H, s, gen):
-    """``(x + f₃₂(x) + f₁₀₂₄(x))/3`` applied spectrally to ``H/s``."""
+def _deskew(H, s, gen, terms: int = 3):
+    """``(x + f₃₂(x) + f₁₀₂₄(x))/3`` applied spectrally to ``H/s``; with
+    ``terms=4``, ``(x + f₃₂ + f₁₀₂₄ + f₃₂₇₆₈)/4`` (five more squarings),
+    which lowers the resolvable floor from ~1.1e-4·λmax to ~4.7e-6·λmax.
+    Four terms only at the root: a zoom link's compression noise, ~3e-3 of
+    its band top, overflows f32 in ``(1+3e-3)^32768``."""
     I = _eye(H.shape[-1], H)
     s = s[..., None, None]
     # guard shift: f32-noise-negative eigenvalues must not blow up ^1024
@@ -149,7 +151,12 @@ def _deskew(H, s, gen):
     f32_ = I - X
     for _ in range(5):
         X = X @ X  # (1-x)^1024
-    return (H / s + f32_ + (I - X)) / 3.0
+    if terms == 3:
+        return (H / s + f32_ + (I - X)) / 3.0
+    f1024 = I - X
+    for _ in range(5):
+        X = X @ X  # (1-x)^32768
+    return (H / s + f32_ + f1024 + (I - X)) / 4.0
 
 
 def _kpm_cdf(B, gen, degree: int = 64, probes: int = 8):
@@ -250,18 +257,21 @@ def _leaf_masks(k: int, counts):
     return torch.arange(k, device=counts.device)[None, :] >= (k - counts[:, None])
 
 
-def _ladder(H, count, gen, tail_merge: bool):
+def _ladder(H, count, gen, cfg):
     """Level-synchronous chain basis: ``(Q [n, cols], mask [cols])``.
 
     Every level runs one batched split over the zoom node (while it lives)
-    and all tree nodes of that size.  The zoom descends while its child
+    and all tree nodes of that size, each with ``cfg["kpm"]`` (the JAX
+    package's ladder ignores ``kpm_tree``).  The root is de-skewed with
+    ``cfg["deskew_terms"]`` terms (3 when unset), every later node with 3.
+    The zoom descends while its level is below ``chain`` and its child
     capacity exceeds ``1.5·base``.  Then, with ``tail_merge``, it joins the
     tree (de-skewed when still wider than ``base``); without, it is solved
     by one exact eigh.  Levels stop when the node size reaches ``base``, and
     the leaves are solved in one batch.  Counts stay device tensors: the
-    loop's structure depends on ``n`` alone.
+    loop's structure depends on ``n`` and ``cfg`` alone.
     """
-    n = H.shape[0]
+    n, base = H.shape[0], cfg["base"]
     Hz, lift_z, count_z = H, None, count  # lift None = identity at the root
     TB = TC = TL = None  # tree nodes [b, m, m], counts [b], lifts [b, n, m]
     q_parts, m_parts = [], []
@@ -270,15 +280,16 @@ def _ladder(H, count, gen, tail_merge: bool):
         kc = m // 2 + _margin(m)
         zoom_live = Hz is not None
         if zoom_live:
-            Bz = _deskew(Hz, _power_norm(Hz, gen), gen)
+            terms = (cfg["deskew_terms"] or 3) if level == 0 else 3
+            Bz = _deskew(Hz, _power_norm(Hz, gen), gen, terms)
             nodes = Bz[None] if TB is None else torch.cat([Bz[None], TB])
             counts_all = (count_z[None] if TC is None
                           else torch.cat([count_z[None], TC]))
         else:
             nodes, counts_all = TB, TC
         bsz = nodes.shape[0]
-        sign_it = _SIGN_ROOT if level == 0 else _SIGN
-        P, W, PW, r = _split(nodes, counts_all, gen, sign_it, kc, _KPM)
+        sign_it = cfg["sign_root"] if level == 0 else cfg["sign"]
+        P, W, PW, r = _split(nodes, counts_all, gen, sign_it, kc, cfg["kpm"])
 
         # panels: the zoom node's bottom is the H-space λ-weighted capture
         if zoom_live:
@@ -287,7 +298,7 @@ def _ladder(H, count, gen, tail_merge: bool):
             bottoms = torch.cat([Wz[None], PW[1:]])
         else:
             bottoms = PW
-        Y = _orth_px(torch.cat([bottoms, W - PW]), *_ORTH)
+        Y = _orth_px(torch.cat([bottoms, W - PW]), *cfg["orth"])
         Yb, Yt = Y[:bsz], Y[bsz:]
 
         # compressions: the zoom bottom against Hz, everything else its B
@@ -317,13 +328,13 @@ def _ladder(H, count, gen, tail_merge: bool):
             TB_next = torch.cat([Cb, Ct])
 
         if zoom_live:
-            if level + 1 < _CHAIN and kc > int(1.5 * _BASE):
+            if level + 1 < cfg["chain"] and kc > int(1.5 * base):
                 Hz, lift_z, count_z = Cb[0], lz_next, rz_next
-            elif tail_merge:
+            elif cfg["tail_merge"]:
                 # hand the last zoom node to the tree, de-skewed by its own
                 # top unless the leaf solve takes it directly
                 tail = Cb[0]
-                if kc > _BASE:
+                if kc > base:
                     tail = _deskew(tail, _power_norm(tail, gen), gen)
                 TB_next = torch.cat([TB_next, tail[None]])
                 TC_next = torch.cat([TC_next, rz_next[None]])
@@ -338,7 +349,7 @@ def _ladder(H, count, gen, tail_merge: bool):
 
         m = kc
         level += 1
-        if m <= _BASE:
+        if m <= base:
             _, evecs = batched_eigh(TB)  # [b, m, m] ascending
             lifted = TL @ evecs
             q_parts.append(lifted.permute(1, 0, 2).reshape(n, -1))
@@ -346,22 +357,22 @@ def _ladder(H, count, gen, tail_merge: bool):
             return torch.cat(q_parts, dim=1), torch.cat(m_parts)
 
 
-def _tree(B, counts, lifts, gen, base: int):
+def _tree(B, counts, lifts, gen, cfg):
     """Balanced level-batched D&C on de-skewed nodes (no zooms inside).
 
     ``B [b, k, k]`` nodes with valid counts ``counts [b]`` and isometries
     ``lifts [b, n0, k]`` from the subtree root space.  Every level splits all
-    nodes in one batch until they fit ``base``.  Returns
-    ``(masks [L, kb], Q [L, n0, kb])``: the leaves' validity and lifted
-    eigenvectors (ascending per leaf).
+    nodes in one batch (``cfg``'s ``sign``, ``orth`` and ``kpm_tree``) until
+    they fit ``base``.  Returns ``(masks [L, kb], Q [L, n0, kb])``: the
+    leaves' validity and lifted eigenvectors (ascending per leaf).
     """
     k = B.shape[-1]
-    while k > base:
+    while k > cfg["base"]:
         kc = k // 2 + _margin(k)
         bsz = B.shape[0]
-        P, W, PW, r = _split(B, counts, gen, _SIGN, kc, _KPM)
+        P, W, PW, r = _split(B, counts, gen, cfg["sign"], kc, cfg["kpm_tree"])
         r = _clip(r, (counts - kc).clamp(min=0), counts.clamp(max=kc))
-        Y = _orth_px(torch.cat([PW, W - PW]), *_ORTH)
+        Y = _orth_px(torch.cat([PW, W - PW]), *cfg["orth"])
         Ym, Yp = Y[:bsz], Y[bsz:]
         B = torch.cat([_compress(Ym, B), _compress(Yp, B)])
         counts = torch.cat([r, counts - r])
@@ -376,41 +387,56 @@ def _flat_leaves(masks, Q):
     return Q.permute(1, 0, 2).reshape(Q.shape[1], -1), masks.reshape(-1)
 
 
-def _basis(H, count, gen, depth: int, base: int):
-    """Recursive zoom-chain basis of the strip's bulk (``depth ≥ 1``):
-    ``(Q [n, cols], mask [cols])``.
+def _basis(H, count, gen, depth: int, cfg):
+    """Approximate eigenbasis of ``H`` and its validity: ``(Q [n, cols],
+    mask [cols])``.
 
-    De-skew, one split, a λ-weighted capture of the bottom re-compressed
-    against ``H`` (recursed into while its capacity exceeds ``1.5·base``,
-    else solved exactly), and a balanced tree on the top.
+    At the root (``depth == 0``) the gates of the JAX package's ``_basis``
+    choose: the strip (:func:`_strip_basis`) when ``strip != 0`` and
+    ``n ≥ (strip or 1536)``; else the ladder (:func:`_ladder`) when
+    ``ladder`` and ``n < 2048`` or ``deskew_terms`` is set; else this
+    recursion, the "deep map", whose root de-skew takes ``deskew_terms``
+    terms, 4 when unset at ``n ≥ 2048``.  Below the root it is the zoom
+    chain of the strip's bulk and of the deep map.
+
+    The recursion: de-skew, one split, a λ-weighted capture of the bottom
+    re-compressed against ``H`` (recursed into while ``depth + 1 < chain``
+    and its capacity exceeds ``1.5·base``, else solved exactly), and a
+    balanced tree on the top.
     """
     n = H.shape[0]
-    B = _deskew(H, _power_norm(H, gen), gen)
+    if depth == 0 and cfg["strip"] != 0 and n >= (cfg["strip"] or _STRIP_MIN):
+        return _strip_basis(H, count, gen, cfg)
+    if cfg["ladder"] and depth == 0 and (n < 2048 or cfg["deskew_terms"] is not None):
+        return _ladder(H, count, gen, cfg)
+    terms = 3 if depth > 0 else cfg["deskew_terms"] or (4 if n >= 2048 else 3)
+    B = _deskew(H, _power_norm(H, gen), gen, terms)
+    sign = cfg["sign_root"] if depth == 0 else cfg["sign"]
     kc = n // 2 + _margin(n)
-    P, W, PW, r = (x[0] for x in _split(B[None], count[None], gen, _SIGN, kc, _KPM))
+    P, W, PW, r = (x[0] for x in _split(B[None], count[None], gen, sign, kc, cfg["kpm"]))
     r = _clip(r, (count - kc).clamp(min=0), count)
     r_z = r.clamp(max=kc)  # zoom capacity clip (drops the sub-atol tail)
 
     # bottom: λ-weighted capture (one H application) and the zoom
     Om = _randn(gen, (n, kc), H) / np.sqrt(n)
-    Yz = _orth_px(P @ (H @ (P @ Om)), *_ORTH)
+    Yz = _orth_px(P @ (H @ (P @ Om)), *cfg["orth"])
     Hz = _compress(Yz, H)
-    if depth + 1 < _CHAIN and kc > int(1.5 * base):
-        Qz, mz = _basis(Hz, r_z, gen, depth + 1, base)
+    if depth + 1 < cfg["chain"] and kc > int(1.5 * cfg["base"]):
+        Qz, mz = _basis(Hz, r_z, gen, depth + 1, cfg)
         Qz = Yz @ Qz
     else:
         _, Vz = batched_eigh(Hz[None])
         Qz, mz = Yz @ Vz[0], _leaf_masks(kc, r_z[None])[0]
 
     # top: balanced subtree on the de-skewed complement
-    Yp = _orth_px(W - PW, *_ORTH)
+    Yp = _orth_px(W - PW, *cfg["orth"])
     Qt, mt = _flat_leaves(*_tree(_compress(Yp, B)[None], (count - r)[None],
-                                 Yp[None], gen, base))
+                                 Yp[None], gen, cfg))
     return torch.cat([Qz, Qt], dim=1), torch.cat([mz, mt])
 
 
-def _strip_basis(H, count, gen, base: int):
-    """Root-level top-band strip for ``n ≥ 1536``: ``(Q, mask)``.
+def _strip_basis(H, count, gen, cfg):
+    """Root-level top-band strip for ``n ≥ (strip or 1536)``: ``(Q, mask)``.
 
     On a large GGN Gram most of the spectrum sits in a narrow band far below
     ``λmax``, where gaps relative to the node's top are near f32 epsilon and
@@ -422,7 +448,7 @@ def _strip_basis(H, count, gen, base: int):
     """
     n = H.shape[0]
     B = _deskew(H, _power_norm(H, gen), gen)
-    grid, cdf = _kpm_cdf(B[None], gen, degree=_KPM)
+    grid, cdf = _kpm_cdf(B[None], gen, degree=cfg["kpm"])
     cdf = cdf[0]
     kt = n // 8 + _margin(n // 8)  # static top-child capacity
     target = count - n / 16.0 + (n - count)  # CDF rank below the strip
@@ -437,20 +463,20 @@ def _strip_basis(H, count, gen, base: int):
 
     I = _eye(n, H)
     Xs = B - sigma * I
-    P = 0.5 * (I - _sign_px(Xs / _power_norm(Xs, gen), *_SIGN_ROOT))
+    P = 0.5 * (I - _sign_px(Xs / _power_norm(Xs, gen), *cfg["sign_root"]))
     r = torch.round(torch.trace(P)) - (n - count)  # valid count below σ
     r = _clip(r, count - kt + _margin(kt) // 2, count)
 
     # top child: de-skewed subtree on the complement (skinny panel)
     W = B @ (_randn(gen, (n, kt), H) / np.sqrt(n))
-    Yp = _orth_px(W - P @ W, *_ORTH)
+    Yp = _orth_px(W - P @ W, *cfg["orth"])
     Qt, mt = _flat_leaves(*_tree(_compress(Yp, B)[None], (count - r)[None],
-                                 Yp[None], gen, base))
+                                 Yp[None], gen, cfg))
 
     # bulk child: exact full-size spectral projection, renormalized by its
     # own top inside the recursion
     H1 = P @ (H @ P)
-    Qz, mz = _basis(0.5 * (H1 + H1.T), r, gen, 1, base)
+    Qz, mz = _basis(0.5 * (H1 + H1.T), r, gen, 1, cfg)
     return torch.cat([Qz, Qt], dim=1), torch.cat([mz, mt])
 
 
@@ -525,38 +551,105 @@ def _edge_block(Bt, Q, nb: int, top: bool):
     return 0.5 * (Bt + Bt.T), Q
 
 
-def _schedule(eigenvectors: bool, strip_on: bool) -> dict:
-    """Polish schedule per mode and path (the JAX package's defaults):
-    Davies-Modi iterations before/between/after the windowed sweeps, global
-    Newton-Schulz steps, edge-block size, windowed sweeps, and Newton-Schulz
-    steps per Davies-Modi rotation."""
+def _make_cfg(base=160, chain=6, sign_root=(9, 4), sign=(9, 4), orth=(8, 3),
+              kpm=64, basis_prec=None, q_prec=None, deskew_prec=None,
+              deskew_terms=None, strip=None, kpm_tree=None, ladder=True,
+              tail_merge=True) -> dict:
+    """The basis knobs as one dict, with the JAX package's ``_make_cfg``
+    keys: leaf size, zoom depth cap, (polar-express, Newton-Schulz)
+    iterations of the root sign, the other signs and the panel
+    orthonormalization, KPM degree (``kpm_tree`` for the subtree splits,
+    ``kpm`` when unset), de-skew terms at the root, strip threshold, the
+    ladder and its tail merge.  The precision knobs must be one of
+    ``None``, ``"highest"`` and ``"high"``; every matmul runs in full f32
+    whatever they say."""
+    for name, prec in (("basis_prec", basis_prec), ("q_prec", q_prec),
+                       ("deskew_prec", deskew_prec)):
+        if prec not in _PRECISIONS:
+            raise ValueError(f"{name} must be None, 'highest' or 'high', got {prec!r}")
+    if deskew_terms not in (None, 3, 4):
+        raise ValueError(f"deskew_terms must be None, 3 or 4, got {deskew_terms!r}")
+    return {"base": base, "chain": chain, "sign_root": tuple(sign_root),
+            "sign": tuple(sign), "orth": tuple(orth), "kpm": kpm,
+            "basis_prec": basis_prec, "q_prec": q_prec, "deskew_prec": deskew_prec,
+            "deskew_terms": deskew_terms, "strip": strip, "kpm_tree": kpm_tree or kpm,
+            "ladder": ladder, "tail_merge": tail_merge}
+
+
+def _polish(eigenvectors: bool, strip_on: bool, dm_iters, ns_global, bottom,
+            wj_iters, dm_ns) -> dict:
+    """The polish knobs, each unset one at the JAX package's default for the
+    mode and path: Davies-Modi iterations before/between/after the windowed
+    sweeps, global Newton-Schulz steps, edge-block size, windowed sweeps, and
+    Newton-Schulz steps per Davies-Modi rotation."""
     if eigenvectors:
-        return {"dm": (2, 1, 1) if strip_on else (2, 2, 1),
-                "ns": 5 if strip_on else 6, "edge": 320, "wj": (1, 1, 1),
-                "dm_ns": 1 if strip_on else 2}
-    return {"dm": (0, 0, 0), "ns": 3, "edge": 160 if strip_on else 96,
-            "wj": (1, 0, 1) if strip_on else (1, 0, 0), "dm_ns": 1}
+        default = {"dm": (2, 1, 1) if strip_on else (2, 2, 1),
+                   "ns": 5 if strip_on else 6, "edge": 320, "wj": (1, 1, 1),
+                   "dm_ns": 1 if strip_on else 2}
+    else:
+        default = {"dm": (0, 0, 0), "ns": 3, "edge": 160 if strip_on else 96,
+                   "wj": (1, 0, 1) if strip_on else (1, 0, 0), "dm_ns": 1}
+    given = {"dm": dm_iters, "ns": ns_global, "edge": bottom, "wj": wj_iters,
+             "dm_ns": dm_ns}
+    return {k: v if given[k] is None else given[k] for k, v in default.items()}
 
 
 def eigh_dc(
     H: torch.Tensor,
     *,
+    base: int = 160,
+    chain: int = 6,
     eigenvectors: bool = True,
     dm_iters: Optional[Tuple[int, int, int]] = None,
+    bottom: Optional[int] = None,
     key: Optional[int] = None,
     guard: Optional[float] = 1e-4,
     return_info: bool = False,
+    sign_iters_root: Tuple[int, int] = (9, 4),
+    sign_iters: Tuple[int, int] = (9, 4),
+    orth_iters: Tuple[int, int] = (8, 3),
+    kpm_degree: int = 64,
+    basis_prec: Optional[str] = None,
+    q_prec: Optional[str] = None,
+    deskew_prec: Optional[str] = None,
+    ns_global: Optional[int] = None,
+    dm_ns: Optional[int] = None,
+    deskew_terms: Optional[int] = None,
+    strip: Optional[int] = None,
+    wj_iters: Optional[Tuple[int, int, int]] = None,
+    kpm_tree: Optional[int] = None,
+    ladder: bool = True,
+    tail_merge: Optional[bool] = None,
 ):
     """Full spectrum of a symmetric PSD matrix: ``(evals [n] ascending,
     evecs [n, n] or None[, info])``.
 
-    ``n ≤ 160`` goes straight to ``torch.linalg.eigh``; ``n < 1536`` runs the
-    chain path and larger ``n`` the strip path.  The random draws come from a
-    generator on ``H``'s device seeded with the int ``key`` (default 0).
-    ``dm_iters`` overrides the polish's Davies-Modi iterations before,
-    between and after the windowed sweeps (default: the mode's and path's
-    schedule).  The JAX
-    package's other tuning knobs are module constants here (``README.md``).
+    ``n ≤ max(base, 128)`` goes straight to ``torch.linalg.eigh``.  The
+    keywords are the JAX package's, with its defaults, and select the same
+    computations:
+
+    * ``strip``: the strip threshold (``None``: 1536; ``0``: no strip).  On
+      the strip, leaves widen to ``max(base, 320, n // 9)``.
+    * ``ladder``: below the strip, the level-synchronous chain (default) or,
+      with ``False``, the recursive one, which is also the root at
+      ``n ≥ 2048`` without the strip unless ``deskew_terms`` is set.
+    * ``deskew_terms``: 3 or 4 terms of the root's de-skew (``None``: 3 on
+      the ladder, 4 on the deep map at ``n ≥ 2048``).
+    * ``tail_merge``: the ladder's zoom tail joins the tree (``None``: in
+      eigenvalues mode only) or gets an exact eigh.
+    * ``base``, ``chain``, ``sign_iters_root``, ``sign_iters``,
+      ``orth_iters``, ``kpm_degree``, ``kpm_tree``: leaf size, zoom depth
+      cap, iterations and KPM degrees of the basis.
+    * ``dm_iters``, ``ns_global``, ``bottom``, ``wj_iters``, ``dm_ns``: the
+      polish (``None``: the mode's and path's default), ``bottom`` sizing
+      the bottom block and, at ``m ≥ 1536``, the top block.
+    * ``basis_prec``, ``q_prec``, ``deskew_prec``: ``None``, ``"highest"``
+      or ``"high"``, anything else raises.  By the port's precision mapping
+      ``"high"`` (the TPU's bf16_3x) runs in full f32, so a demotion the JAX
+      package makes gives the port's ``"highest"`` result.
+
+    The random draws come from a generator on ``H``'s device seeded with the
+    int ``key`` (default 0).
 
     ``guard``: threshold of the runtime self-check (perturbation bound of the
     remaining couplings, and orthonormality drift of the significant basis
@@ -568,34 +661,45 @@ def eigh_dc(
     n = H.shape[0]
     with full_f32():
         H = (0.5 * (H + H.T)).to(_F32)
-        if n <= max(_BASE, 2 * _MARGIN):
+        if n <= max(base, 2 * _MARGIN):
             if eigenvectors:
                 evals, evecs = torch.linalg.eigh(H)
             else:
                 evals, evecs = torch.linalg.eigvalsh(H), None
             return ((evals, evecs, no_trip_info(H.device)) if return_info
                     else (evals, evecs))
-        gen = torch.Generator(device=H.device)
-        gen.manual_seed(0 if key is None else key)
-        return _eigh_dc(H, gen, eigenvectors, dm_iters, guard, return_info)
-
-
-def _eigh_dc(H, gen, eigenvectors, dm_iters, guard, return_info):
-    n = H.shape[0]
-    strip_on = n >= _STRIP_MIN
-    sched = _schedule(eigenvectors, strip_on)
-    if dm_iters is not None:
-        sched["dm"] = tuple(dm_iters)
-    count = torch.tensor(float(n), dtype=_F32, device=H.device)
-    if strip_on:
-        # the strip's chain must end in wide exact leaves, or a zoom link's
-        # capacity clip loses the band's smallest carriers
-        Q, mask = _strip_basis(H, count, gen, max(_BASE, 320, n // 9))
-    else:
+        strip_on = strip != 0 and n >= (strip or _STRIP_MIN)
+        if strip_on:
+            # the strip's chain must end in wide exact leaves, or a zoom
+            # link's capacity clip loses the band's smallest carriers; the
+            # JAX package's measured strip precisions (no-ops here)
+            base = max(base, 320, n // 9)
+            if deskew_prec is None:
+                deskew_prec = "high"
+            if basis_prec is None:
+                basis_prec = "high"
+                if q_prec is None:
+                    q_prec = "highest"
+        polish = _polish(eigenvectors, strip_on, dm_iters, ns_global, bottom,
+                         wj_iters, dm_ns)
         # the zoom tail merges into the tree for eigenvalues only: its
         # couplings to far-away columns are second order in the values but
         # first order in the vectors
-        Q, mask = _ladder(H, count, gen, tail_merge=not eigenvectors)
+        cfg = _make_cfg(
+            base=base, chain=chain, sign_root=sign_iters_root, sign=sign_iters,
+            orth=orth_iters, kpm=kpm_degree, basis_prec=basis_prec, q_prec=q_prec,
+            deskew_prec=deskew_prec, deskew_terms=deskew_terms, strip=strip,
+            kpm_tree=kpm_tree, ladder=ladder,
+            tail_merge=not eigenvectors if tail_merge is None else tail_merge)
+        gen = torch.Generator(device=H.device)
+        gen.manual_seed(0 if key is None else key)
+        return _eigh_dc(H, gen, cfg, polish, eigenvectors, guard, return_info)
+
+
+def _eigh_dc(H, gen, cfg, polish, eigenvectors, guard, return_info):
+    n = H.shape[0]
+    count = torch.tensor(float(n), dtype=_F32, device=H.device)
+    Q, mask = _basis(H, count, gen, 0, cfg)
 
     # Select n + slack columns: the mask dominates, then column norm.  The
     # pad columns collapse to spurious zeros and are dropped at the end.
@@ -615,7 +719,7 @@ def _eigh_dc(H, gen, eigenvectors, dm_iters, guard, return_info):
     Q = Qlead + Qtail
 
     # global re-orthonormalization
-    for _ in range(sched["ns"]):
+    for _ in range(polish["ns"]):
         Q = 1.5 * Q - 0.5 * (Q @ (Q.T @ Q))
 
     Bt = _compress(Q, H)
@@ -624,7 +728,7 @@ def _eigh_dc(H, gen, eigenvectors, dm_iters, guard, return_info):
     Bt, Qp = _sort_by_diag(Bt, Q if eigenvectors else None)
     # windows widen once the relative spacing falls under the couplings
     w = 64 if m >= 2048 else 32
-    dm, wj, dm_ns = sched["dm"], sched["wj"], sched["dm_ns"]
+    dm, wj, dm_ns = polish["dm"], polish["wj"], polish["dm_ns"]
     for _ in range(dm[0]):
         Bt, Qp = _dm_iteration(Bt, Qp, dm_ns)
     for _ in range(wj[0]):
@@ -633,9 +737,9 @@ def _eigh_dc(H, gen, eigenvectors, dm_iters, guard, return_info):
         Bt, Qp = _dm_iteration(Bt, Qp, dm_ns)
     for _ in range(wj[1]):
         Bt, Qp = _windowed_jacobi(Bt, Qp, w)
-    Bt, Qp = _edge_block(Bt, Qp, sched["edge"], top=False)
-    if m >= _STRIP_MIN:
-        Bt, Qp = _edge_block(*_sort_by_diag(Bt, Qp), sched["edge"], top=True)
+    Bt, Qp = _edge_block(Bt, Qp, polish["edge"], top=False)
+    if m >= _STRIP_MIN:  # the JAX package's gate: m, not the strip threshold
+        Bt, Qp = _edge_block(*_sort_by_diag(Bt, Qp), polish["edge"], top=True)
     # clusters straddling the bottom-block boundary: one more local sweep
     for _ in range(wj[2]):
         Bt, Qp = _windowed_jacobi(Bt, Qp, w)
@@ -696,11 +800,17 @@ def _eigh_dc(H, gen, eigenvectors, dm_iters, guard, return_info):
 
 
 def eigvalsh_dc(H: torch.Tensor, *, return_info: bool = False, **kwargs):
-    """Eigenvalues-only :func:`eigh_dc`: ``evals`` or ``(evals, info)``."""
+    """Eigenvalues-only :func:`eigh_dc`, with its keywords but
+    ``eigenvectors``: ``evals`` or ``(evals, info)``."""
     out = eigh_dc(H, eigenvectors=False, return_info=return_info, **kwargs)
     if return_info:
         return out[0], out[2]
     return out[0]
+
+
+# the keywords eigvalsh_dc passes on, for inspect.signature and help()
+eigvalsh_dc.__signature__ = inspect.signature(eigh_dc).replace(parameters=[
+    p for p in inspect.signature(eigh_dc).parameters.values() if p.name != "eigenvectors"])
 
 
 def refine_eigh(H: torch.Tensor, Q: torch.Tensor, key: Optional[int] = None,

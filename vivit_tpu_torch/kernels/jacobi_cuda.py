@@ -16,10 +16,14 @@ Three pieces, one function:
 * :func:`batched_eigh_jacobi`: a CPU tensor goes to the plain version, a
   CUDA tensor to the kernel.  There is no fallback between the two.
 
-Both stop a matrix after the first sweep in which every rotation was the
-identity (``|a_pq| <= 1e-30``): every later sweep would leave it exactly as
-it is, so the result is that of :data:`SWEEPS` sweeps.  The kernel always
-exits so; the plain version does when asked (``exit_early``).
+Both run at most ``sweeps`` sweeps (:data:`SWEEPS` by default, as the TPU
+kernel's ``sweeps=12``) and stop a matrix after the first sweep in which
+every rotation was the identity (``|a_pq| <= 1e-30``): every later sweep
+would leave it exactly as it is, so the result is that of ``sweeps``
+sweeps.  The kernel always exits so; the plain version does when asked
+(``exit_early``).  The round-robin order of the pairs is not the TPU
+kernel's odd-even order, so before both have converged their results
+differ.
 
 Kernel and plain version apply the same operations in the same order and
 rounding, so on the card they agree to the bit on the inputs that
@@ -117,6 +121,11 @@ def _sort(d, V):
     return evals, evecs
 
 
+def _check_sweeps(sweeps):
+    if not isinstance(sweeps, int) or sweeps < 1:
+        raise ValueError(f"batched Jacobi runs at least one sweep, got sweeps={sweeps!r}")
+
+
 def _check_shape(A):
     if A.dtype != torch.float32:
         raise TypeError(f"batched Jacobi takes float32, got {A.dtype}")
@@ -128,23 +137,25 @@ def _check_shape(A):
 
 
 def batched_eigh_jacobi_plain(A: torch.Tensor, exit_early: bool = False,
-                              return_sweeps: bool = False):
+                              return_sweeps: bool = False, sweeps: int = SWEEPS):
     """Plain PyTorch Jacobi: ``[B, m, m] -> (evals [B, m] ascending,
-    evecs [B, m, m])``, on whatever device ``A`` lies.
+    evecs [B, m, m])`` after ``sweeps`` sweeps, on whatever device ``A``
+    lies.
 
     ``exit_early`` stops once every matrix has had a sweep in which every
     rotation was the identity, as the kernel does; the result is the same.
     ``return_sweeps`` adds the sweeps that rule runs for each matrix (int32
-    ``[B]``, at most :data:`SWEEPS`), with or without ``exit_early``.
+    ``[B]``, at most ``sweeps``), with or without ``exit_early``.
     """
     _check_shape(A)
+    _check_sweeps(sweeps)
     b, m, _ = A.shape
     A = 0.5 * (A + A.transpose(-1, -2))
     V = torch.eye(m, dtype=A.dtype, device=A.device).expand(b, m, m).clone()
     P, Q = round_robin_pairs(m)
     P, Q = P.to(A.device), Q.to(A.device)
-    sweeps = torch.full((b,), SWEEPS, dtype=torch.int32, device=A.device)
-    for sweep in range(SWEEPS):
+    ran = torch.full((b,), sweeps, dtype=torch.int32, device=A.device)
+    for sweep in range(sweeps):
         rotated = torch.zeros(b, dtype=torch.bool, device=A.device)
         for step in range(m - 1):
             p, q = P[step], Q[step]
@@ -170,11 +181,11 @@ def batched_eigh_jacobi_plain(A: torch.Tensor, exit_early: bool = False,
             A[:, p, q] = 0.0
             A[:, q, p] = 0.0
         # the first sweep without a rotation is the last one the rule runs
-        sweeps = torch.where(~rotated & (sweeps == SWEEPS), sweep + 1, sweeps)
-        if exit_early and bool((sweeps < SWEEPS).all()):
+        ran = torch.where(~rotated & (ran == sweeps), sweep + 1, ran)
+        if exit_early and bool((ran < sweeps).all()):
             break
     evals, evecs = _sort(torch.diagonal(A, dim1=-2, dim2=-1), V)
-    return (evals, evecs, sweeps) if return_sweeps else (evals, evecs)
+    return (evals, evecs, ran) if return_sweeps else (evals, evecs)
 
 
 def build():
@@ -222,12 +233,15 @@ def _schedule(m: int, device: torch.device) -> torch.Tensor:
     return _SCHEDULES[key]
 
 
-def batched_eigh_jacobi_cuda(A: torch.Tensor, return_sweeps: bool = False):
-    """The Hopper kernel: ``[B, m, m] -> (evals ascending, evecs)``, with
-    ``m`` in :data:`KERNEL_SIZES`.  ``return_sweeps`` adds the sweeps each
-    matrix ran (int32 ``[B]``, on the card, not synchronised)."""
+def batched_eigh_jacobi_cuda(A: torch.Tensor, return_sweeps: bool = False,
+                             sweeps: int = SWEEPS):
+    """The Hopper kernel: ``[B, m, m] -> (evals ascending, evecs)`` after at
+    most ``sweeps`` sweeps, with ``m`` in :data:`KERNEL_SIZES`.
+    ``return_sweeps`` adds the sweeps each matrix ran (int32 ``[B]``, on the
+    card, not synchronised)."""
     global LAUNCHES
     _check_shape(A)
+    _check_sweeps(sweeps)
     b, m, _ = A.shape
     if m not in KERNEL_SIZES:
         raise ValueError(f"the Jacobi kernel is compiled for m = 32, 48 or 64, got {m}")
@@ -237,30 +251,31 @@ def batched_eigh_jacobi_cuda(A: torch.Tensor, return_sweeps: bool = False):
         raise ValueError("the Jacobi kernel takes a contiguous tensor")
     d = torch.empty((b, m), dtype=A.dtype, device=A.device)
     V = torch.empty((b, m, m), dtype=A.dtype, device=A.device)
-    sweeps = torch.empty((b,), dtype=torch.int32, device=A.device)
+    sweeps_run = torch.empty((b,), dtype=torch.int32, device=A.device)
     if b > 0:
         fn = _library().vivit_jacobi_eigh_f32
         sched = _schedule(m, A.device)
         with torch.cuda.device(A.device):
             stream = torch.cuda.current_stream(A.device).cuda_stream
             err = fn(A.data_ptr(), sched.data_ptr(), d.data_ptr(), V.data_ptr(),
-                     sweeps.data_ptr(), b, m, SWEEPS, stream)
+                     sweeps_run.data_ptr(), b, m, sweeps, stream)
         if err != 0:
             raise RuntimeError(f"Jacobi kernel launch failed: cudaError {err}")
         LAUNCHES += 1
     evals, evecs = _sort(d, V)
-    return (evals, evecs, sweeps) if return_sweeps else (evals, evecs)
+    return (evals, evecs, sweeps_run) if return_sweeps else (evals, evecs)
 
 
-def batched_eigh_jacobi(A: torch.Tensor):
-    """``[B, m, m] -> (evals [B, m] ascending, evecs [B, m, m])``.
+def batched_eigh_jacobi(A: torch.Tensor, sweeps: int = SWEEPS):
+    """``[B, m, m] -> (evals [B, m] ascending, evecs [B, m, m])`` after at
+    most ``sweeps`` sweeps.
 
     A CPU tensor runs the plain version; a CUDA tensor launches the kernel
     (or raises).
     """
     if A.device.type == "cpu":
-        return batched_eigh_jacobi_plain(A)
-    return batched_eigh_jacobi_cuda(A)
+        return batched_eigh_jacobi_plain(A, sweeps=sweeps)
+    return batched_eigh_jacobi_cuda(A, sweeps=sweeps)
 
 
 def rotation_flops(m: int, matrix_sweeps: int) -> int:
