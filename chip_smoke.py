@@ -116,7 +116,22 @@ Phases, each printed as it runs:
     through the kernel and its plain version (bit-equal, timed), and the
     kernel at sweeps 1, 4 and 12 on its first window batch of each shape,
     bit-equal to its plain version with no matrix past the cap.
-15. The call times of the new entries, the launches of each path, a JSON
+15. **Captured execution** (:func:`phase_graphs`): every chain-path
+    ``eigh_dc`` call on the card replays CUDA graphs captured on its first
+    call per key (``vivit_tpu_torch.utils.graphs``), so every gate above
+    reads replays, their Jacobi launches counted by the replay.  For the
+    headline's and ``eigh_topk``'s N=128 solves: the capture (time, graphs,
+    vendor steps and their shapes), the replay bit-equal to the eager body
+    with the same key, launches outside graphs beside the vendor steps' own
+    (at most :data:`OUTSIDE_BAR` more) and the eager body's, the Jacobi
+    kernel's executions in the trace equal to the counter, busy shares; the
+    forced trip under replay in both modes (it trips, warns, and returns
+    the vendor's result); the headline, ``eigh_topk``, the dc Newton step
+    and both classes timed replay against eager body in turns, bit-equal
+    under deterministic cuDNN; the cache's memory before and after
+    ``clear()``; and the tally of every chain-path solve of the phases above,
+    each replay held against the eager body by :func:`recording_eigh`.
+16. The call times of the new entries, the launches of each path, a JSON
     line of the kernels, then ``{"ok": true, "device": ...}`` last.
 
 Any failed check exits non-zero.  Without a CUDA device it exits 2 and
@@ -381,19 +396,8 @@ def phase_main_path(jc):
     with full_f32():
         vt = tapped_ggn_sqrt_vt(model, loss, X, y, deflate_ce_null=True)
         gram = gram_matrix_mixed(vt, generic_precision=_PRECISIONS["bf16"])
-        windows = []
-        solve = eigdc.batched_eigh
-
-        def recording(A):
-            if jacobi_supported(A.shape, A.dtype):
-                windows.append(A.clone())
-            return solve(A)
-
-        eigdc.batched_eigh = recording
-        try:
-            ev_dc = eigdc.eigvalsh_dc(gram)
-        finally:
-            eigdc.batched_eigh = solve
+        ev_dc, windows = recording_eigh(lambda: eigdc.eigvalsh_dc(gram))
+    windows = [A for A in windows if jacobi_supported(A.shape, A.dtype)]
     ref = torch.linalg.eigvalsh(gram.double())
     err = (ev_dc.double() - ref).abs()
     tol = ATOL * ref.abs().max() + RTOL * ref.abs()
@@ -579,24 +583,64 @@ def launches_of(jc, fn):
     return out, jc.LAUNCHES
 
 
+# every chain-path solve recorded by recording_eigh: (n, mode, bit-equal,
+# max|replay − eager|, float64 err/tol of an unequal replay's eigenvalues)
+REPLAYS = []
+
+
 def recording_eigh(fn):
-    """``(fn(), batches)``: every batch ``batched_eigh`` receives inside
-    ``fn``, cloned, in call order."""
+    """``(fn(), batches)``: ``fn`` runs as it does, its chain-path eigdc
+    solves replayed from their CUDA graphs; each of those solves runs once
+    more through the eager body with the same matrix and seed, its Jacobi
+    launches uncounted, where every batch ``batched_eigh`` receives is
+    recorded, cloned, in call order, and the replay is held against it
+    (:data:`REPLAYS`).  A strip-path solve runs eagerly and is recorded as
+    it runs."""
     from vivit_tpu_torch import eigdc
+    from vivit_tpu_torch.kernels import jacobi_cuda as jc
 
     batches = []
-    solve = eigdc.batched_eigh
+    recording = [True]
+    solve, captured = eigdc.batched_eigh, eigdc._solve_captured
 
-    def recording(A):
-        batches.append(A.clone())
+    def record(A):
+        if recording[0]:
+            batches.append(A.clone())
         return solve(A)
 
-    eigdc.batched_eigh = recording
+    def replayed(H, seed, *args):
+        recording[0] = False
+        try:
+            out = captured(H, seed, *args)
+        finally:
+            recording[0] = True
+        launches = jc.LAUNCHES
+        REPLAYS.append(replay_against_eager(H, out, eigdc._solve_eager(H, seed, *args)))
+        jc.LAUNCHES = launches
+        return out
+
+    eigdc.batched_eigh, eigdc._solve_captured = record, replayed
     try:
         out = fn()
     finally:
-        eigdc.batched_eigh = solve
+        eigdc.batched_eigh, eigdc._solve_captured = solve, captured
     return out, batches
+
+
+def replay_against_eager(H, out, ref):
+    """``(n, mode, bit-equal, max|Δ|, err/tol)`` of a replayed solve's
+    ``(evals, evecs, bound, orth, nan)`` against the eager body's; an unequal
+    replay's eigenvalues are held to float64's bar (err/tol ≤ 1)."""
+    import torch
+
+    pairs = [(a, b) for a, b in zip(out, ref) if a is not None]
+    equal = all(torch.equal(a, b) for a, b in pairs)
+    diff = max((a.double() - b.double()).abs().max().item() for a, b in pairs)
+    ratio = 0.0
+    if not equal:
+        ratio = spectrum_ratio(out[0], torch.linalg.eigvalsh(H.double()))[0]
+        check(ratio <= 1.0, f"replayed {H.shape[0]}² solve off float64 ({ratio:.2f} of the bar)")
+    return H.shape[0], "eigenpairs" if out[1] is not None else "eigenvalues", equal, diff, ratio
 
 
 def host_ms(fn, reps=3, warmup=True):
@@ -1468,6 +1512,7 @@ def phase_streamed(jc):
     from vivit_tpu_torch.optim import utils as optim_utils
     from vivit_tpu_torch.optim.directional_damped_newton import newton_step_from_derivatives
     from vivit_tpu_torch.precision import full_f32
+    from vivit_tpu_torch.utils import graphs
 
     model_fn, params = generic_model()
     paths = list(params)
@@ -1584,6 +1629,11 @@ def phase_streamed(jc):
     def spectrum_large():
         return chunked.eigvalsh_streamed(model_fn, loss, params, X5, y5, **settings)[0]
 
+    # the peak below is the call's own: the cached graphs' pools go first
+    pool_bytes = cache_memory()[0]
+    graphs.clear()
+    print(f"{label}: clear() released the cached graphs' memory pools ({gb(pool_bytes)}) "
+          "before the peak is read", flush=True)
     untripped(spectrum_large, label)  # warm-up
     (((evals, gram_d), peak), launches[label]) = launches_of(jc, lambda: peak_of(
         lambda: streamed_gram_of(lambda: untripped(spectrum_large, label))))
@@ -2215,6 +2265,7 @@ def phase_routes(jc, grams):
             def solve(**extra):
                 return eigdc.eigh_dc(G, eigenvectors=vectors, **kw, **extra)
 
+            quiet(lambda: solve(return_info=True))  # the first call per key captures
             ((ev, V, info), batches), count = launches_of(
                 jc, lambda: quiet(lambda: recording_eigh(lambda: solve(return_info=True))))
             tripped = bool(info["tripped"])
@@ -2240,6 +2291,261 @@ def phase_routes(jc, grams):
             check_route_sweeps(jc, batches, label)
             launches[label], windows[label] = count, totals
     return launches, windows
+
+
+# the runtime calls that launch device work outside a CUDA graph
+LAUNCH_APIS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx",
+               "cudaMemcpyAsync", "cudaMemsetAsync")
+# launches outside the graphs that a replayed chain solve may add to its
+# vendor solves' own: the input copy, the generator's seed and offset per
+# graph, the vendor outputs' copies, the output clones and the guard's verdict
+OUTSIDE_BAR = 100
+
+
+def launch_profile(fn):
+    """``fn`` once under ``torch.profiler``: ``{"wall", "busy"}`` in ms (host
+    clock, device time summed over kernels, copies and fills), ``"device"``
+    (their count), ``"jacobi"`` (the Jacobi kernel's executions),
+    ``"outside"`` (runtime launch calls outside any graph, :data:`LAUNCH_APIS`)
+    and ``"graphs"`` (``cudaGraphLaunch`` calls)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    device = [e for e in events if e.device_type == DeviceType.CUDA]
+    host = {e.key: e.count for e in events if e.device_type == DeviceType.CPU}
+    return {"wall": wall, "busy": sum(e.self_device_time_total for e in device) / 1e3,
+            "device": sum(e.count for e in device),
+            "jacobi": sum(e.count for e in device if "jacobi_kernel" in e.key),
+            "outside": sum(host.get(name, 0) for name in LAUNCH_APIS),
+            "graphs": host.get("cudaGraphLaunch", 0)}
+
+
+@contextmanager
+def eager_body():
+    """Inside the block, eigdc's chain-path solves run the eager body."""
+    from vivit_tpu_torch import eigdc
+
+    captured = eigdc._solve_captured
+    eigdc._solve_captured = eigdc._solve_eager
+    try:
+        yield
+    finally:
+        eigdc._solve_captured = captured
+
+
+def flat_tensors(out):
+    """The tensors of a nested result, in order."""
+    import torch
+
+    if isinstance(out, torch.Tensor):
+        return [out]
+    if isinstance(out, dict):
+        out = list(out.values())
+    if isinstance(out, (tuple, list)):
+        return [t for x in out for t in flat_tensors(x)]
+    return []
+
+
+def cache_memory():
+    """``(bytes of the cached graphs' memory pools or None, bytes of the
+    entries' static buffers outside them)``."""
+    import torch
+
+    from vivit_tpu_torch.utils import graphs
+
+    entries = graphs.entries().values()
+    pools = {tuple(e.pool) for e in entries}
+    segments = torch.cuda.memory_snapshot()
+    pool_bytes = (sum(seg["total_size"] for seg in segments
+                      if tuple(seg["segment_pool_id"]) in pools)
+                  if all("segment_pool_id" in seg for seg in segments) else None)
+    buffers = sum(t.untyped_storage().nbytes() for e in entries
+                  for t in (*e.inputs, *(u for st in e.steps for u in flat_tensors(st.out))))
+    return pool_bytes, buffers
+
+
+def gb(x):
+    return "not measured" if x is None else f"{x / 1e9:.3f} GB"
+
+
+def phase_graphs(jc):
+    """The captured execution of the chain path (phase 15): for the N=128
+    headline Gram (eigenvalues) and ``eigh_topk``'s deflated Gram
+    (eigenpairs), the capture (time, graphs, vendor steps and their shapes,
+    Jacobi launches per graph), the replay against the eager body with the
+    same key (bit-equal), launches outside graphs beside the vendor steps'
+    own and the eager solve's (torch.profiler), the Jacobi kernel's
+    executions in the trace against the counter, busy shares; the forced
+    trip under replay in both modes; the five entries' call times, replay
+    against eager body in turns, bit-equal; the cache's memory; and the
+    replay-against-eager tally of every solve :func:`recording_eigh` saw."""
+    import torch
+
+    import vivit_tpu_torch as vtt
+    from vivit_tpu_torch import eigdc
+    from vivit_tpu_torch.precision import _PRECISIONS, full_f32
+    from vivit_tpu_torch.structured import gram_matrix_mixed
+    from vivit_tpu_torch.tapped import tapped_ggn_sqrt_vt
+    from vivit_tpu_torch.utils import graphs
+
+    model = port_model()
+    X, y = port_batch(N)
+    loss = vtt.CrossEntropyLoss("mean")
+    with full_f32():
+        headline = gram_matrix_mixed(tapped_ggn_sqrt_vt(model, loss, X, y, deflate_ce_null=True),
+                                     generic_precision=_PRECISIONS["bf16"])
+    deflated = deflated_gram(model, loss, X, y)[2]
+    graphs.clear()
+    for name, G, vectors, expect in (("headline solve", headline, False, 2),
+                                     ("eigenpair solve", deflated, True, 6)):
+        label = f"graphs: {name} {G.shape[0]}² ({'eigenpairs' if vectors else 'eigenvalues'})"
+
+        def solve():
+            with full_f32():
+                return eigdc.eigh_dc(G, eigenvectors=vectors, return_info=True)
+
+        before = set(graphs.entries())
+        first, t_first = cuda_once(solve)
+        (entry,) = [e for k, e in graphs.entries().items() if k not in before]
+        steps = [f"{list(st.args[0].shape)}" for st in entry.steps]
+        print(f"{label}: first call {t_first:.3f} ms (capture {entry.capture_s * 1e3:.3f} ms "
+              f"host clock, warm-up included): {len(entry.graphs)} graphs, Jacobi launches "
+              f"captured per graph {entry.launches}, {len(steps)} vendor steps between "
+              f"them {steps}", flush=True)
+        check(all(st.fn is torch.linalg.eigh for st in entry.steps),
+              f"{label}: a step other than the vendor eigh")
+        (out, count) = launches_of(jc, solve)
+        check(count == expect, f"{label}: {count} Jacobi launches under replay, expected {expect}")
+        check(not bool(out[2]["tripped"]), f"{label}: the guard tripped")
+        with eager_body():
+            ref = solve()
+        pairs = list(zip(flat_tensors(out), flat_tensors(ref)))
+        equal = all(torch.equal(a, b) for a, b in pairs)
+        diff = max((a.double() - b.double()).abs().max().item() for a, b in pairs)
+        print(f"{label}: replay vs eager body (same key): bit-equal {equal}, max|Δ| {diff:.3e}; "
+              f"first call vs replay bit-equal "
+              f"{all(torch.equal(a, b) for a, b in zip(flat_tensors(first), flat_tensors(out)))}",
+              flush=True)
+        if not equal:
+            ratio = spectrum_ratio(out[0], torch.linalg.eigvalsh(G.double()))[0]
+            print(f"{label}: the replay's eigenvalues vs float64 max err/tol {ratio:.3f}",
+                  flush=True)
+            check(ratio <= 1.0, f"{label}: the replay off float64 ({ratio:.2f} of the bar)")
+
+        replay = launch_profile(solve)
+        vendor = launch_profile(lambda: [st.fn(*st.args) for st in entry.steps])
+        with eager_body():
+            eager = launch_profile(solve)
+        extra = replay["outside"] - vendor["outside"]
+        print(f"{label} under torch.profiler: replay {replay['wall']:.3f} ms, busy "
+              f"{replay['busy']:.3f} ms = {replay['busy'] / replay['wall']:.1%}, launches outside "
+              f"graphs {replay['outside']} (the vendor steps' own {vendor['outside']}, the rest "
+              f"{extra}, bar {OUTSIDE_BAR}), graph launches {replay['graphs']}, device operations "
+              f"{replay['device']}, Jacobi kernel executions {replay['jacobi']} (counter "
+              f"{count}); eager body {eager['wall']:.3f} ms, busy {eager['busy']:.3f} ms = "
+              f"{eager['busy'] / eager['wall']:.1%}, launches {eager['outside']}, device "
+              f"operations {eager['device']}, Jacobi kernel executions {eager['jacobi']}",
+              flush=True)
+        check(extra <= OUTSIDE_BAR, f"{label}: {extra} launches outside graphs beyond the vendor's")
+        check(replay["jacobi"] == count,
+              f"{label}: the trace shows {replay['jacobi']} Jacobi kernels, the counter {count}")
+
+    # the forced trip of phase 14 under replay: it trips, warns, and the
+    # result is the vendor's on the same matrix
+    forced = next(kw for name, _, kw, _ in ROUTES if name == "forced trip")
+    for vectors, expect in ((False, 2), (True, 6)):
+        label = f"graphs: forced trip {deflated.shape[0]}² " \
+                f"({'eigenpairs' if vectors else 'eigenvalues'})"
+
+        def solve():
+            with full_f32():
+                return eigdc.eigh_dc(deflated, eigenvectors=vectors, return_info=True, **forced)
+
+        before = len(graphs.entries())
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            solve()  # the capture
+        check(len(graphs.entries()) == before + 1, f"{label}: no new cache entry")
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            (ev, V, info), count = launches_of(jc, solve)
+        trips = [w for w in caught if "guard tripped" in str(w.message)]
+        with full_f32():
+            H = 0.5 * (deflated + deflated.T)
+            want = torch.linalg.eigh(H) if vectors else (torch.linalg.eigvalsh(H), None)
+        same = torch.equal(ev, want[0]) and (V is None or torch.equal(V, want[1]))
+        print(f"{label}: under replay Jacobi launches {count}, tripped {bool(info['tripped'])} "
+              f"(bound {float(info['bound']):.2e}, orth {float(info['orth']):.2e}), "
+              f"{len(trips)} warning, result equal to the vendor's {same}", flush=True)
+        check(count == expect, f"{label}: {count} Jacobi launches, expected {expect}")
+        check(bool(info["tripped"]) and len(trips) == 1, f"{label}: the guard did not trip")
+        check(same, f"{label}: the fallback's result is not the vendor's")
+
+    # the entries' call times, replay against eager body in turns
+    model_fn, params = generic_model()
+    settings = dict(eig_backend="dc", **HEADLINE)
+    eigvalsh = vtt.EigvalshComputation(model_fn, loss, **settings)
+    eigh = vtt.EighComputation(model_fn, loss, **settings)
+    groups = [{"params": list(params), "criterion": vtt.keep_top_k(TOP_K)}]
+    entries = {
+        f"eigvalsh_structured N={N} (headline)": lambda: vtt.eigvalsh_structured(
+            model, loss, X, y, eig_backend="dc", **HEADLINE),
+        f"eigh_topk N={N}": lambda: vtt.eigh_topk(model, loss, X, y, TOP_K, solver="dc",
+                                                  **HEADLINE),
+        f"newton_step_structured N={N} (dc)": lambda: vtt.newton_step_structured(
+            model, loss, X, y, TOP_K, damping=1.0, solver="dc", **HEADLINE),
+        f"EigvalshComputation N={N}": lambda: eigvalsh.compute(X, y, params=params),
+        f"EighComputation N={N}": lambda: eigh.compute(X, y, groups, params=params),
+    }
+
+    def eagerly(call):
+        def run():
+            with eager_body():
+                return call()
+        return run
+
+    for label, call in entries.items():
+        with deterministic_cudnn():  # the V-transforms' weight gradients
+            out = untripped(call, label)
+            ref = eagerly(call)()
+        equal = all(torch.equal(a, b) for a, b in zip(flat_tensors(out), flat_tensors(ref)))
+        check(equal, f"{label}: the replayed call differs from the eager body's")
+        t_replay, t_eager = paired_times(call, eagerly(call))
+        print(f"graphs: {label}: replay {spread(t_replay)}, eager body {spread(t_eager)} (CUDA "
+              "events around one call, median [min-max] of 5, in turns), replay/eager "
+              f"{np.median(t_replay) / np.median(t_eager):.3f}; results bit-equal {equal}",
+              flush=True)
+    headline_call = entries[f"eigvalsh_structured N={N} (headline)"]
+    replay, eager = launch_profile(headline_call), launch_profile(eagerly(headline_call))
+    print(f"graphs: eigvalsh_structured N={N} (headline) under torch.profiler: replay "
+          f"{replay['wall']:.3f} ms, busy {replay['busy'] / replay['wall']:.1%}, launches outside "
+          f"graphs {replay['outside']}, graph launches {replay['graphs']}, device operations "
+          f"{replay['device']}; eager body {eager['wall']:.3f} ms, busy "
+          f"{eager['busy'] / eager['wall']:.1%}, launches {eager['outside']}, device operations "
+          f"{eager['device']}", flush=True)
+
+    pool_bytes, buffers = cache_memory()
+    print(f"graphs: the cache holds {len(graphs.entries())} entries, their memory pools "
+          f"{gb(pool_bytes)}, static buffers outside them {gb(buffers)}", flush=True)
+    graphs.clear()
+    print(f"graphs: after clear(): {len(graphs.entries())} entries, memory pools "
+          f"{gb(cache_memory()[0])}", flush=True)
+
+    check(REPLAYS, "no chain-path solve was held against the eager body")
+    unequal = [r for r in REPLAYS if not r[2]]
+    print(f"graphs: {len(REPLAYS)} chain-path solves of the phases above replayed against the "
+          f"eager body with the same key: {len(REPLAYS) - len(unequal)} bit-equal, max|Δ| "
+          f"{max((r[3] for r in REPLAYS), default=0.0):.3e}" + "".join(
+              f"; {n}² {mode} unequal, max|Δ| {d:.3e}, float64 err/tol {q:.3f}"
+              for n, mode, _, d, q in unequal), flush=True)
 
 
 def main():
@@ -2285,6 +2591,7 @@ def main():
         times.update(dp_times)
         route_launches, route_win = phase_routes(jc, {"small": gram_d,
                                                       "large": gram_large})
+        phase_graphs(jc)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAIL: {exc}", file=sys.stderr)
         return 1

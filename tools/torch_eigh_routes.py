@@ -22,7 +22,9 @@ script measures the three questions that set the port's policy:
    call and through the kernel (m in its sizes) or the loop (other
    multi-batch blocks), with the route that the TPU's envelope (kernel for
    b·m <= 2048, m in {32, 48, 64}; batched else) and that the port gives
-   it; then each whole solve under either dispatch, in turns.
+   it; then each whole solve under either dispatch, in turns, run through
+   the eager body (a chain-path solve replayed from its CUDA graphs keeps
+   the dispatch it was captured with).
 
 CUDA events, median and [min-max] of 5 (of 3 in situ).  Exits non-zero if
 a check fails.
@@ -167,7 +169,8 @@ def main():
     try:
         kernel_sweep(jc)
         leaf_sweep()
-        in_situ(jc)
+        with smoke.eager_body():
+            in_situ(jc)
     except smoke.SmokeFailure as exc:
         print(f"torch_eigh_routes: FAIL: {exc}", file=sys.stderr)
         return 1

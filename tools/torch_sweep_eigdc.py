@@ -9,8 +9,10 @@ answer) on the port's deflated Grams of full-width CIFAR-10 3c3d, built as
 N=128 and 4608² at N=512.  For each configuration it prints the median and
 spread of the CUDA-event times of ``--reps`` calls after a warm-up, the
 Jacobi launches of one call, and the violations of float64's eigenvalue bar
-(rtol 1e-4, atol 5e-6·λmax) with the largest err/tol.  It measures and
-changes no default.  The card's name and power limit come first.
+(rtol 1e-4, atol 5e-6·λmax) with the largest err/tol.  Below the strip a
+configuration's calls replay the CUDA graphs its first call captured.  It
+measures and changes no default.  The card's name and power limit come
+first.
 
 Usage::
 
@@ -93,6 +95,7 @@ def main():
             def solve():
                 return eigvalsh_dc(gram, guard=None, **kw)
 
+            solve()  # below the strip the first call per configuration captures
             ev, launches = cs.launches_of(jc, solve)
             ratio, bad = cs.spectrum_ratio(ev, ref)
             times = cs.cuda_times(solve, reps=args.reps, warmup=1)

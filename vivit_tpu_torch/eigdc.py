@@ -40,7 +40,16 @@ f32, built from matrix products:
 5. **Guard**: the solver measures its own perturbation bound and basis
    orthonormality; past ``guard`` the result comes from
    ``torch.linalg.eigh``/``eigvalsh`` instead.  This is the only host read
-   of the solve, at its end.
+   of the solve, at its end, after the device work.
+
+On a CUDA tensor the chain path (no strip) runs as CUDA graphs, the port's
+counterpart of the JAX package's compiled program: the first call per
+shape and configuration captures the device work (:func:`_solve`), every
+later call replays it (:func:`vivit_tpu_torch.utils.graphs.run`).  The
+vendor solves of the leaves and edge blocks (``torch.linalg.eigh``, which
+reads cuSOLVER's status on the host) run eagerly between the graphs; the
+guard's read, its warning and its fallback run after the last one.  The
+strip path and a CPU tensor run eagerly.
 
 Random draws come from one ``torch.Generator`` on the matrix's device
 (seed 0 unless one is given), so results match the JAX package to
@@ -55,6 +64,7 @@ pre-strip "deep-map" root (``strip=0``), whose de-skew takes a fourth
 term at ``n ≥ 2048``.
 """
 
+import functools
 import inspect
 import math
 import warnings
@@ -66,6 +76,7 @@ import torch
 from vivit_tpu_torch.eig import no_trip_info
 from vivit_tpu_torch.kernels.jacobi import batched_eigh
 from vivit_tpu_torch.precision import full_f32
+from vivit_tpu_torch.utils import graphs
 
 # polar-express degree-5 coefficients (slope 3.44 per step)
 _PX_A, _PX_B, _PX_C = 3.4445, -4.7750, 2.0315
@@ -649,7 +660,10 @@ def eigh_dc(
       package makes gives the port's ``"highest"`` result.
 
     The random draws come from a generator on ``H``'s device seeded with the
-    int ``key`` (default 0).
+    int ``key`` (default 0).  On a CUDA tensor below the strip the first
+    call per ``n``, mode and resolved knobs captures the solve as CUDA
+    graphs and later calls replay them, with any ``key`` and ``guard``;
+    :func:`vivit_tpu_torch.utils.graphs.clear` drops them.
 
     ``guard``: threshold of the runtime self-check (perturbation bound of the
     remaining couplings, and orthonormality drift of the significant basis
@@ -691,14 +705,39 @@ def eigh_dc(
             deskew_prec=deskew_prec, deskew_terms=deskew_terms, strip=strip,
             kpm_tree=kpm_tree, ladder=ladder,
             tail_merge=not eigenvectors if tail_merge is None else tail_merge)
-        gen = torch.Generator(device=H.device)
-        gen.manual_seed(0 if key is None else key)
-        return _eigh_dc(H, gen, cfg, polish, eigenvectors, guard, return_info)
+        solve = _solve_captured if H.is_cuda and not strip_on else _solve_eager
+        out = solve(H, 0 if key is None else key, cfg, polish, eigenvectors,
+                    guard is not None)
+        return _guarded(H, *out, eigenvectors, guard, return_info)
 
 
-def _eigh_dc(H, gen, cfg, polish, eigenvectors, guard, return_info):
+def _solve_eager(H, seed, cfg, polish, eigenvectors, guarded):
+    """:func:`_solve` run eagerly, its draws from a generator on ``H``'s
+    device seeded with ``seed``."""
+    gen = torch.Generator(device=H.device)
+    gen.manual_seed(seed)
+    return _solve(gen, H, cfg, polish, eigenvectors, guarded)
+
+
+def _solve_captured(H, seed, cfg, polish, eigenvectors, guarded):
+    """:func:`_solve` replayed from CUDA graphs, captured on the first call
+    per key (:func:`vivit_tpu_torch.utils.graphs.run`).  The key holds what
+    shapes the solve: ``n``, the device, the mode, the resolved basis and
+    polish knobs and whether the guard's quantities are computed; not the
+    seed, nor the guard's threshold, which is compared after the replay."""
+    key = ("eigh_dc", H.shape[0], H.device, eigenvectors, tuple(sorted(cfg.items())),
+           tuple(sorted(polish.items())), guarded)
+    return graphs.run(key, functools.partial(
+        _solve, cfg=cfg, polish=polish, eigenvectors=eigenvectors, guarded=guarded),
+        (H,), seed)
+
+
+def _solve(gen, H, cfg, polish, eigenvectors, guarded):
+    """The solve's device work, no host read: ``(evals, evecs or None,
+    bound, orth, nan)``, the last three the guard's (``None`` unless
+    ``guarded``)."""
     n = H.shape[0]
-    count = torch.tensor(float(n), dtype=_F32, device=H.device)
+    count = torch.full((), float(n), dtype=_F32, device=H.device)
     Q, mask = _basis(H, count, gen, 0, cfg)
 
     # Select n + slack columns: the mask dominates, then column norm.  The
@@ -761,8 +800,8 @@ def _eigh_dc(H, gen, cfg, polish, eigenvectors, guard, return_info):
     evals = d[order][pad:]
     evecs = Qp[:, order][:, pad:] if eigenvectors else None
 
-    if guard is None:
-        return (evals, evecs, no_trip_info(H.device)) if return_info else (evals, evecs)
+    if not guarded:
+        return evals, evecs, None, None, None
 
     # defect 1: perturbation bound of the remaining couplings; in eigenvalues
     # mode the pairs the correction handled are third order there
@@ -781,7 +820,15 @@ def _eigh_dc(H, gen, cfg, polish, eigenvectors, guard, return_info):
     eye_c = torch.eye(Qc.shape[1], dtype=_F32, device=H.device)
     gram_q = (Qc.T @ Qc - eye_c) * (sig[:, None] * sig[None, :])
     orth = torch.linalg.matrix_norm(gram_q) / torch.sqrt(sig.sum() + 1.0)
-    bad = (bound > guard) | (orth > guard) | torch.isnan(d).any()
+    return evals, evecs, bound, orth, torch.isnan(d).any()
+
+
+def _guarded(H, evals, evecs, bound, orth, nan, eigenvectors, guard, return_info):
+    """The guard's verdict on a solve's output, and the vendor's result in
+    its place past ``guard``."""
+    if guard is None:
+        return (evals, evecs, no_trip_info(H.device)) if return_info else (evals, evecs)
+    bad = (bound > guard) | (orth > guard) | nan
     info = {"tripped": bad, "bound": bound, "orth": orth}
     if bool(bad):  # the solve's one host read
         vendor = "torch.linalg.eigh" if eigenvectors else "torch.linalg.eigvalsh"

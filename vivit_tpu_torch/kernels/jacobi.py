@@ -16,11 +16,16 @@ call beyond the run-to-run spread at any block measured (0.94-1.15x, m from
 96 to 2048; 1.00-1.07x on the paths' own leaves in situ;
 ``tools/torch_eigh_routes.py``), because torch's batched eigh for m > 32
 is already a loop of cuSOLVER's single-matrix solvers.
+
+``torch.linalg.eigh`` on a CUDA tensor reads cuSOLVER's status on the host,
+so inside a captured solve it runs as an eager step between two graphs
+(:func:`vivit_tpu_torch.utils.graphs.eager`); the kernel runs inside them.
 """
 
 import torch
 
 from vivit_tpu_torch.kernels.jacobi_cuda import KERNEL_SIZES, batched_eigh_jacobi
+from vivit_tpu_torch.utils.graphs import eager
 
 
 def jacobi_supported(shape, dtype) -> bool:
@@ -50,4 +55,4 @@ def batched_eigh(A: torch.Tensor):
     """
     if jacobi_supported(A.shape, A.dtype):
         return batched_eigh_jacobi(A.contiguous())
-    return torch.linalg.eigh(A)
+    return eager(torch.linalg.eigh, A)

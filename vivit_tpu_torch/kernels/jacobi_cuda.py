@@ -44,7 +44,9 @@ MAX_M = 64
 # the sizes the kernel is compiled for: the dispatch envelope's m
 KERNEL_SIZES = (32, 48, 64)
 
-# Launches of the CUDA kernel since the last reset (``LAUNCHES = 0``).
+# Launches of the CUDA kernel since the last reset (``LAUNCHES = 0``).  A
+# replay of captured CUDA graphs makes no Python call: it adds the launches
+# its graphs captured (``vivit_tpu_torch.utils.graphs``).
 LAUNCHES = 0
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
