@@ -131,8 +131,34 @@ Phases, each printed as it runs:
     under deterministic cuDNN; the cache's memory before and after
     ``clear()``; and the tally of every chain-path solve of the phases above,
     each replay held against the eager body by :func:`recording_eigh`.
-16. The call times of the new entries, the launches of each path, a JSON
-    line of the kernels, then ``{"ok": true, "device": ...}`` last.
+    Phases 3-14 read the entry points through their graphs too (phase 16);
+    here, and for the tally of :func:`recording_eigh`, their bodies run
+    eagerly around the replayed solves (:func:`eager_entries`).
+16. **Entry graphs** (:func:`phase_entry_graphs`): every N=128 entry point
+    (``eigvalsh_structured`` with the headline settings, ``eigvalsh`` on the
+    model function, ``eigh_topk``, ``directional_derivatives_topk``,
+    ``newton_step_structured`` with ``"dc"`` and ``"lobpcg"``, and the four
+    computation classes on the model function of phase 9 and on the module)
+    replays CUDA graphs of its whole call, captured on its first call per
+    key; under deterministic cuDNN: the capture (time, programs, graphs,
+    eager steps, pool bytes), the replay bit-equal to the eager body, equal
+    to a fresh eager call after an in-place SGD step and on a new batch
+    (same key), and after a replaced parameter tensor (a model function's
+    params are copied in: the same key; a module's are read in place: a
+    new key, the stale one dropped), launches outside graphs beyond the
+    eager steps' own and a class's eager rest after its program (at most
+    :data:`OUTSIDE_BAR`), the Jacobi kernel's executions in the trace equal
+    to the counter, busy shares, the replay against solve-only graphs (the
+    body eager, its chain solve replayed) and against no graphs in turns,
+    and a guard trip under replay, forced by a zero threshold (one warning,
+    the eager call's result).  Each key's pool is printed and released
+    (``graphs.clear()``), here and before the N=512 phases; every entry
+    replay of phases 3-15 (:func:`recording_eigh`, which runs the eager
+    body once more for what the phases record) is held against its eager
+    body: bit-equal, or within :data:`ENTRY_BAR` of it.
+17. The call times of the new entries, the launches of each path, a JSON
+    line of the kernels, the command time, then ``{"ok": true, "device":
+    ...}`` last.
 
 Any failed check exits non-zero.  Without a CUDA device it exits 2 and
 prints no result.
@@ -552,10 +578,10 @@ def port_model():
     return model.to("cuda").eval()
 
 
-def port_batch(n):
+def port_batch(n, seed=0):
     import torch
 
-    rng = np.random.default_rng(0)
+    rng = np.random.default_rng(seed)
     X = rng.normal(size=(n, 32, 32, 3)).astype(np.float32)
     y = rng.integers(0, NUM_CLASSES, size=(n,)).astype(np.int32)
     return torch.tensor(X, device="cuda"), torch.tensor(y, device="cuda")
@@ -586,22 +612,63 @@ def launches_of(jc, fn):
 # every chain-path solve recorded by recording_eigh: (n, mode, bit-equal,
 # max|replay − eager|, float64 err/tol of an unequal replay's eigenvalues)
 REPLAYS = []
+# every entry-point call recorded by recording_eigh that replayed its graphs:
+# (bit-equal to its eager body, max|replay − eager| / max|eager|)
+ENTRY_REPLAYS = []
+# the bar of an entry replay that is not bit-equal to its eager body (cuDNN's
+# default algorithms), max|Δ| / max|eager|: twice LOBPCG_STEP_ATOL, the
+# loosest float64 gate a phase holds an entry's output to, as each of the
+# two results meets it
+ENTRY_BAR = 2 * 7.7e-4
+
+
+@contextmanager
+def eager_entries():
+    """Inside the block, the entry points run their bodies eagerly, as
+    before their calls were captured (a chain-path solve in them still
+    replays its own graphs unless :func:`eager_body` is on too)."""
+    from vivit_tpu_torch.utils import graphs
+
+    stage = graphs.stage
+    graphs.stage = lambda key, body, X, y, params, route: (body(X, y, params), False)
+    try:
+        yield
+    finally:
+        graphs.stage = stage
+
+
+@contextmanager
+def uncounted():
+    """Inside the block, Jacobi launches are not counted."""
+    from vivit_tpu_torch.kernels import jacobi_cuda as jc
+
+    launches = jc.LAUNCHES
+    try:
+        yield
+    finally:
+        jc.LAUNCHES = launches
 
 
 def recording_eigh(fn):
-    """``(fn(), batches)``: ``fn`` runs as it does, its chain-path eigdc
-    solves replayed from their CUDA graphs; each of those solves runs once
-    more through the eager body with the same matrix and seed, its Jacobi
-    launches uncounted, where every batch ``batched_eigh`` receives is
-    recorded, cloned, in call order, and the replay is held against it
-    (:data:`REPLAYS`).  A strip-path solve runs eagerly and is recorded as
-    it runs."""
+    """``(fn(), batches)``: ``fn`` runs as it does, its entry points and
+    chain-path eigdc solves replayed from their CUDA graphs.  A replayed
+    entry point runs no Python of its solves, so ``fn`` then runs once more
+    with the entry points' bodies eager (:func:`eager_entries`), its
+    launches uncounted, and its result is held against the replay's
+    (:data:`ENTRY_REPLAYS`); what the caller records around ``fn`` comes
+    from that run too.  Each chain-path solve that runs from Python
+    replays its own graphs and runs once more through the eager body with
+    the same matrix and seed, uncounted, where every batch ``batched_eigh``
+    receives is recorded, cloned, in call order, and the replay is held
+    against it (:data:`REPLAYS`).  A strip-path solve runs eagerly and is
+    recorded as it runs."""
     from vivit_tpu_torch import eigdc
-    from vivit_tpu_torch.kernels import jacobi_cuda as jc
+    from vivit_tpu_torch.utils import graphs
 
     batches = []
     recording = [True]
-    solve, captured = eigdc.batched_eigh, eigdc._solve_captured
+    solve, captured, stage = eigdc.batched_eigh, eigdc._solve_captured, graphs.stage
+    replays = []
 
     def record(A):
         if recording[0]:
@@ -614,17 +681,36 @@ def recording_eigh(fn):
             out = captured(H, seed, *args)
         finally:
             recording[0] = True
-        launches = jc.LAUNCHES
-        REPLAYS.append(replay_against_eager(H, out, eigdc._solve_eager(H, seed, *args)))
-        jc.LAUNCHES = launches
+        with uncounted():
+            REPLAYS.append(replay_against_eager(H, out, eigdc._solve_eager(H, seed, *args)))
         return out
 
-    eigdc.batched_eigh, eigdc._solve_captured = record, replayed
+    def noted(*args):
+        out = stage(*args)
+        replays.append(out[1])
+        return out
+
+    eigdc.batched_eigh, eigdc._solve_captured, graphs.stage = record, replayed, noted
     try:
         out = fn()
+        if any(replays):
+            with uncounted(), eager_entries():
+                ENTRY_REPLAYS.append(entry_against_eager(out, fn()))
     finally:
-        eigdc.batched_eigh, eigdc._solve_captured = solve, captured
+        eigdc.batched_eigh, eigdc._solve_captured, graphs.stage = solve, captured, stage
     return out, batches
+
+
+def entry_against_eager(out, ref):
+    """``(bit-equal, max|Δ| / max|ref|)`` of an entry point's replayed result
+    against its eager body's."""
+    import torch
+
+    pairs = list(zip(flat_tensors(out), flat_tensors(ref)))
+    check(pairs and len(pairs) == len(flat_tensors(ref)), "the replay's result has another form")
+    equal = all(torch.equal(a, b) for a, b in pairs)
+    scale = max(max(b.double().abs().max().item() for _, b in pairs), 1e-30)
+    return equal, max((a.double() - b.double()).abs().max().item() for a, b in pairs) / scale
 
 
 def replay_against_eager(H, out, ref):
@@ -1013,21 +1099,28 @@ def recorded(owner, name):
         setattr(owner, name, original)
 
 
-def newton_step(model, loss, X, y, solver, device=None):
+def newton_step(model, loss, X, y, solver):
     """The bench leg's ``newton_step_structured`` (k=10, damping 1, bf16
-    Gram, CE deflation) with ``solver``; returns ``(step, Vᵀ, the arguments
-    and result of its gammas_lambdas, its LOBPCG solves)``."""
+    Gram, CE deflation) with ``solver``, replayed from its graphs."""
     import vivit_tpu_torch as vtt
+
+    return vtt.newton_step_structured(model, loss, X, y, TOP_K, damping=1.0,
+                                      solver=solver, **HEADLINE)
+
+
+def newton_intermediates(model, loss, X, y, solver):
+    """``(Vᵀ, the arguments and result of its gammas_lambdas, its LOBPCG
+    solves)`` of one more call of :func:`newton_step`'s eager body (a
+    replay runs none of the Python that records them), uncounted."""
     from vivit_tpu_torch import lobpcg, structured
     from vivit_tpu_torch.optim import utils as optim_utils
 
     with recorded(structured, "gram_matrix_mixed") as grams, \
             recorded(optim_utils, "gammas_lambdas") as derivs, \
-            recorded(lobpcg, "lobpcg_standard") as solves:
-        step = vtt.newton_step_structured(model, loss, X, y, TOP_K, damping=1.0,
-                                          solver=solver, device=device, **HEADLINE)
+            recorded(lobpcg, "lobpcg_standard") as solves, uncounted(), eager_entries():
+        newton_step(model, loss, X, y, solver)
     check(len(grams) == 1 and len(derivs) == 1, "one Gram and one γ/λ per step")
-    return step, grams[0][0][0], derivs[0], solves
+    return grams[0][0][0], derivs[0], solves
 
 
 def newton_oracle(model, X, vt, derivs):
@@ -1160,9 +1253,10 @@ def phase_newton(jc, model):
     for solver in ("lobpcg", "dc"):
         label = f"newton_step_structured N={N} ({solver})"
         untripped(lambda: newton_step(model, loss, X, y, solver), label)  # warm-up
-        ((step, vt, derivs, solves), batches), launches[solver] = launches_of(
+        (step, batches), launches[solver] = launches_of(
             jc, lambda: recording_eigh(lambda: untripped(
                 lambda: newton_step(model, loss, X, y, solver), label)))
+        vt, derivs, solves = newton_intermediates(model, loss, X, y, solver)
         ratios = newton_gates(solver, step, derivs, newton_oracle(model, X, vt, derivs),
                               solves)
         iters = [out[2] for _, out in solves]
@@ -1512,7 +1606,6 @@ def phase_streamed(jc):
     from vivit_tpu_torch.optim import utils as optim_utils
     from vivit_tpu_torch.optim.directional_damped_newton import newton_step_from_derivatives
     from vivit_tpu_torch.precision import full_f32
-    from vivit_tpu_torch.utils import graphs
 
     model_fn, params = generic_model()
     paths = list(params)
@@ -1630,10 +1723,7 @@ def phase_streamed(jc):
         return chunked.eigvalsh_streamed(model_fn, loss, params, X5, y5, **settings)[0]
 
     # the peak below is the call's own: the cached graphs' pools go first
-    pool_bytes = cache_memory()[0]
-    graphs.clear()
-    print(f"{label}: clear() released the cached graphs' memory pools ({gb(pool_bytes)}) "
-          "before the peak is read", flush=True)
+    release_graphs(f"{label}'s peak")
     untripped(spectrum_large, label)  # warm-up
     (((evals, gram_d), peak), launches[label]) = launches_of(jc, lambda: peak_of(
         lambda: streamed_gram_of(lambda: untripped(spectrum_large, label))))
@@ -2169,16 +2259,16 @@ ROUTES = [
 ROUTE_SWEEPS = (1, 4, 12)
 
 
-def paired_times(fn, other, reps=5):
-    """CUDA-event times of one call of ``fn`` and of ``other``, ``reps``
-    each, in turns (``fn``, ``other``, ``other``, ``fn``, ...) after one
-    warm-up call of each."""
-    fn()
-    other()
-    times = ([], [])
+def turn_times(fns, reps=5):
+    """CUDA-event times of one call of each of ``fns``, ``reps`` each, in
+    turns (the order reversed every other round: ``a, b, b, a, ...``),
+    after one warm-up call of each."""
+    for fn in fns:
+        fn()
+    times = [[] for _ in fns]
     for i in range(reps):
-        for k in ((0, 1) if i % 2 == 0 else (1, 0)):
-            times[k].append(cuda_once((fn, other)[k])[1])
+        for k in (range(len(fns)) if i % 2 == 0 else reversed(range(len(fns)))):
+            times[k].append(cuda_once(fns[k])[1])
     return times
 
 
@@ -2274,9 +2364,9 @@ def phase_routes(jc, grams):
             raw_ratio, raw_bad = spectrum_ratio(quiet(lambda: solve(guard=None))[0], ref)
             if name == "forced trip":
                 check(tripped, f"{label}: the guard did not trip")
-            t, t_default = paired_times(
+            t, t_default = turn_times([
                 lambda: quiet(solve),
-                lambda: quiet(lambda: eigdc.eigh_dc(G, eigenvectors=vectors)))
+                lambda: quiet(lambda: eigdc.eigh_dc(G, eigenvectors=vectors))])
             print(f"{label}: Jacobi launches {count}; guard tripped {tripped} (bound "
                   f"{float(info['bound']):.2e}, orth {float(info['orth']):.2e}); guarded "
                   f"result vs float64 {line}; raw (guard=None) {raw_bad}/{n} violations, "
@@ -2296,9 +2386,10 @@ def phase_routes(jc, grams):
 # the runtime calls that launch device work outside a CUDA graph
 LAUNCH_APIS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx",
                "cudaMemcpyAsync", "cudaMemsetAsync")
-# launches outside the graphs that a replayed chain solve may add to its
-# vendor solves' own: the input copy, the generator's seed and offset per
-# graph, the vendor outputs' copies, the output clones and the guard's verdict
+# launches outside the graphs that a replayed call may add to its eager
+# steps' own (the vendor solves, LOBPCG's call): the input copies, each
+# generator's seed and offset per graph, the steps' output copies, the output
+# clones, the guards' verdict and, in the classes, the host criterion's copies
 OUTSIDE_BAR = 100
 
 
@@ -2357,19 +2448,17 @@ def flat_tensors(out):
 def cache_memory():
     """``(bytes of the cached graphs' memory pools or None, bytes of the
     entries' static buffers outside them)``."""
-    import torch
-
     from vivit_tpu_torch.utils import graphs
 
-    entries = graphs.entries().values()
-    pools = {tuple(e.pool) for e in entries}
-    segments = torch.cuda.memory_snapshot()
-    pool_bytes = (sum(seg["total_size"] for seg in segments
-                      if tuple(seg["segment_pool_id"]) in pools)
-                  if all("segment_pool_id" in seg for seg in segments) else None)
-    buffers = sum(t.untyped_storage().nbytes() for e in entries
+    buffers = sum(t.untyped_storage().nbytes() for e in graphs.entries().values()
                   for t in (*e.inputs, *(u for st in e.steps for u in flat_tensors(st.out))))
-    return pool_bytes, buffers
+    return total(pool_sizes().values()), buffers
+
+
+def total(sizes):
+    """The sum of byte counts, ``None`` if one of them is unknown."""
+    sizes = list(sizes)
+    return None if None in sizes else sum(sizes)
 
 
 def gb(x):
@@ -2384,8 +2473,9 @@ def phase_graphs(jc):
     same key (bit-equal), launches outside graphs beside the vendor steps'
     own and the eager solve's (torch.profiler), the Jacobi kernel's
     executions in the trace against the counter, busy shares; the forced
-    trip under replay in both modes; the five entries' call times, replay
-    against eager body in turns, bit-equal; the cache's memory; and the
+    trip under replay in both modes; the five entries' call times with
+    their bodies eager and their solves replayed (as before phase 16)
+    against no graphs at all, in turns, bit-equal; the cache's memory; and the
     replay-against-eager tally of every solve :func:`recording_eigh` saw."""
     import torch
 
@@ -2403,7 +2493,7 @@ def phase_graphs(jc):
         headline = gram_matrix_mixed(tapped_ggn_sqrt_vt(model, loss, X, y, deflate_ce_null=True),
                                      generic_precision=_PRECISIONS["bf16"])
     deflated = deflated_gram(model, loss, X, y)[2]
-    graphs.clear()
+    release_graphs("phase 15")
     for name, G, vectors, expect in (("headline solve", headline, False, 2),
                                      ("eigenpair solve", deflated, True, 6)):
         label = f"graphs: {name} {G.shape[0]}² ({'eigenpairs' if vectors else 'eigenvalues'})"
@@ -2432,7 +2522,7 @@ def phase_graphs(jc):
         diff = max((a.double() - b.double()).abs().max().item() for a, b in pairs)
         print(f"{label}: replay vs eager body (same key): bit-equal {equal}, max|Δ| {diff:.3e}; "
               f"first call vs replay bit-equal "
-              f"{all(torch.equal(a, b) for a, b in zip(flat_tensors(first), flat_tensors(out)))}",
+              f"{equal_results(first, out)}",
               flush=True)
         if not equal:
             ratio = spectrum_ratio(out[0], torch.linalg.eigvalsh(G.double()))[0]
@@ -2506,24 +2596,34 @@ def phase_graphs(jc):
         f"EighComputation N={N}": lambda: eigh.compute(X, y, groups, params=params),
     }
 
+    # the entry points' bodies run eagerly here, as before phase 16's
+    # captured calls: only their chain-path solves replay
+    def solve_graphs(call):
+        def run():
+            with eager_entries():
+                return call()
+        return run
+
     def eagerly(call):
         def run():
-            with eager_body():
+            with eager_entries(), eager_body():
                 return call()
         return run
 
     for label, call in entries.items():
+        call = solve_graphs(call)
         with deterministic_cudnn():  # the V-transforms' weight gradients
             out = untripped(call, label)
             ref = eagerly(call)()
-        equal = all(torch.equal(a, b) for a, b in zip(flat_tensors(out), flat_tensors(ref)))
+        equal = equal_results(out, ref)
         check(equal, f"{label}: the replayed call differs from the eager body's")
-        t_replay, t_eager = paired_times(call, eagerly(call))
-        print(f"graphs: {label}: replay {spread(t_replay)}, eager body {spread(t_eager)} (CUDA "
-              "events around one call, median [min-max] of 5, in turns), replay/eager "
+        t_replay, t_eager = turn_times([call, eagerly(call)])
+        print(f"graphs: {label} (the solve replayed, the rest eager): replay "
+              f"{spread(t_replay)}, eager body {spread(t_eager)} (CUDA events around one "
+              "call, median [min-max] of 5, in turns), replay/eager "
               f"{np.median(t_replay) / np.median(t_eager):.3f}; results bit-equal {equal}",
               flush=True)
-    headline_call = entries[f"eigvalsh_structured N={N} (headline)"]
+    headline_call = solve_graphs(entries[f"eigvalsh_structured N={N} (headline)"])
     replay, eager = launch_profile(headline_call), launch_profile(eagerly(headline_call))
     print(f"graphs: eigvalsh_structured N={N} (headline) under torch.profiler: replay "
           f"{replay['wall']:.3f} ms, busy {replay['busy'] / replay['wall']:.1%}, launches outside "
@@ -2548,9 +2648,343 @@ def phase_graphs(jc):
               for n, mode, _, d, q in unequal), flush=True)
 
 
+def key_name(key):
+    """A short name of a graph cache key: the entry point's, or the solve's
+    size and mode."""
+    if key[0] == "eigh_dc":
+        return f"eigh_dc {key[1]}² {'eigenpairs' if key[3] else 'eigenvalues'}"
+    return key[0][0]
+
+
+def pool_sizes():
+    """``{key: bytes of its memory pool}`` of every cached entry (``None``
+    where the snapshot names no pools)."""
+    import torch
+
+    from vivit_tpu_torch.utils import graphs
+
+    segments = torch.cuda.memory_snapshot()
+    known = all("segment_pool_id" in seg for seg in segments)
+    return {key: (sum(seg["total_size"] for seg in segments
+                      if tuple(seg["segment_pool_id"]) == tuple(e.pool)) if known else None)
+            for key, e in graphs.entries().items()}
+
+
+# (key name, pool bytes) of every key that release_graphs released
+RELEASED = []
+
+
+def release_graphs(label):
+    """Print each cached key's pool bytes and their sum, then drop them
+    (``graphs.clear()``)."""
+    from vivit_tpu_torch.utils import graphs
+
+    sizes = [(key_name(key), b) for key, b in pool_sizes().items()]
+    RELEASED.extend(sizes)
+    print(f"graphs before {label}: {len(sizes)} keys, memory pools "
+          + ", ".join(f"{name} {gb(b)}" for name, b in sizes)
+          + f"; sum {gb(total(b for _, b in sizes))}; clear()", flush=True)
+    graphs.clear()
+
+
+def sgd_(model_fn, params, loss, X, y, lr=0.1):
+    """One in-place SGD step on the tensors of ``params`` (the module's own
+    storage for a module)."""
+    import torch
+
+    grads = torch.func.grad(lambda p: loss(model_fn(p, X), y))(params)
+    with torch.no_grad():
+        for name, p in params.items():
+            p.sub_(lr * grads[name])
+
+
+def entry_cases():
+    """Phase 16's entry points: ``(label, Jacobi launches, forced trip
+    possible, build)``; ``build()`` gives ``(call(X, y), model_fn, params,
+    replace(), module form)``, ``params`` the tensors the calls read (a
+    module's own storage), ``replace()`` swapping one of them for a new
+    tensor (a module's: a copy; a model function's: half of it)."""
+    import vivit_tpu_torch as vtt
+    from vivit_tpu_torch.engines import forward_fn, module_params
+
+    loss = vtt.CrossEntropyLoss("mean")
+    settings = dict(eig_backend="dc", **HEADLINE)
+
+    # a module's replaced tensor stays alive, or a later copy could take its
+    # address (and with it its key: the graphs read the tensor at that address)
+    replaced = []
+
+    def module_form(make):
+        def build():
+            model = port_model()
+            last = list(model.parameters())[-1]
+
+            def replace():
+                replaced.append(last.data)
+                last.data = last.data.clone()
+            return make(model, {}), forward_fn(model), module_params(model), replace, True
+        return build
+
+    def function_form(make):
+        def build():
+            model_fn, params = generic_model()
+            name = list(params)[-1]
+
+            def replace():
+                params[name] = params[name] * 0.5
+            return make(model_fn, {"params": params}), model_fn, params, replace, False
+        return build
+
+    def topk(fn, **kw):
+        return module_form(lambda m, p: lambda X, y: fn(m, loss, X, y, TOP_K, **kw, **HEADLINE))
+
+    def comp(cls, criterion, form, **extra):
+        groups = lambda names: [{"params": names, "criterion": vtt.keep_top_k(TOP_K), **extra}]
+
+        def make(m, p):
+            c = cls(m, loss, **settings)
+            names = list(p["params"]) if p else [n for n, _ in m.named_parameters()]
+            args = (groups(names),) if criterion else ()
+            return lambda X, y: c.compute(X, y, *args, **p)
+        return (module_form if form == "module" else function_form)(make)
+
+    damping = vtt.constant_damping(1.0)
+    cases = [
+        (f"eigvalsh_structured N={N} (headline)", 2, True, module_form(
+            lambda m, p: lambda X, y: vtt.eigvalsh_structured(
+                m, loss, X, y, eig_backend="dc", return_eig_info=True, **HEADLINE))),
+        (f"eigvalsh N={N} (model function)", 2, True, function_form(
+            lambda m, p: lambda X, y: vtt.eigvalsh(m, loss, X, y, **p, **settings))),
+        (f"eigh_topk N={N}, k={TOP_K} (dc)", 6, True, topk(vtt.eigh_topk, solver="dc")),
+        (f"directional_derivatives_topk N={N}, k={TOP_K} (dc)", 6, True,
+         topk(vtt.directional_derivatives_topk, solver="dc")),
+        (f"newton_step_structured N={N} (dc)", 6, True,
+         topk(vtt.newton_step_structured, damping=1.0, solver="dc")),
+        (f"newton_step_structured N={N} (lobpcg)", 0, False,
+         topk(vtt.newton_step_structured, damping=1.0, solver="lobpcg")),
+    ]
+    for form in ("model function", "module"):
+        short = "module" if form == "module" else "function"
+        cases += [
+            (f"EigvalshComputation N={N} ({form})", 2, True,
+             comp(vtt.EigvalshComputation, False, short)),
+            (f"EighComputation N={N} ({form}, keep_top_k({TOP_K}))", 6, True,
+             comp(vtt.EighComputation, True, short)),
+            (f"DirectionalDerivativesComputation N={N} ({form}, keep_top_k({TOP_K}))", 6, True,
+             comp(vtt.DirectionalDerivativesComputation, True, short)),
+            (f"DirectionalDampedNewtonComputation N={N} ({form}, keep_top_k({TOP_K}))", 6, True,
+             comp(vtt.DirectionalDampedNewtonComputation, True, short, damping=damping)),
+        ]
+    return loss, cases
+
+
+def entry_keys():
+    """The graph cache's keys of entry-point programs (not of the
+    chain-path solves that an eager body replays on its own)."""
+    from vivit_tpu_torch.utils import graphs
+
+    return {k for k in graphs.entries() if k[0] != "eigh_dc"}
+
+
+@contextmanager
+def handed_back():
+    """Inside the block, a captured entry point's program launches nothing:
+    ``graphs.stage`` hands back the outputs its entry holds."""
+    from vivit_tpu_torch.utils import graphs
+
+    stage = graphs.stage
+    graphs.stage = lambda key, body, X, y, params, route: (graphs.entries()[key].outputs, True)
+    try:
+        yield
+    finally:
+        graphs.stage = stage
+
+
+def equal_results(out, ref):
+    import torch
+
+    a, b = flat_tensors(out), flat_tensors(ref)
+    return len(a) == len(b) > 0 and all(torch.equal(x, z) for x, z in zip(a, b))
+
+
+def phase_entry_graphs(jc):
+    """The entry points' captured execution (phase 16), on full-width 3c3d
+    at N=128 with the headline settings, under deterministic cuDNN: for each
+    entry point of :func:`entry_cases` the capture (time, graphs, eager
+    steps and their shapes, pool bytes), the replay bit-equal to the eager
+    body, the replay after an in-place SGD step and on a new batch equal to
+    a fresh eager call (same key), a replaced parameter tensor (a model
+    function's: the same key, copied in; a module's: a new key, the stale
+    one dropped) giving a fresh eager call's result, launches outside the
+    graphs beyond the vendor and LOBPCG steps' own and a class's eager rest
+    after its program (at most :data:`OUTSIDE_BAR`), the Jacobi kernel's
+    executions in the trace equal to the counter, the busy share, the
+    replay against the eager body and against solve-only graphs in turns,
+    and a guard trip under replay forced by a zero threshold (one warning,
+    the vendor's result); then the entry replays :func:`recording_eigh`
+    held against their eager bodies in phases 3-15, within
+    :data:`ENTRY_BAR`."""
+    import functools
+
+    from vivit_tpu_torch import eigdc
+    from vivit_tpu_torch.utils import graphs
+
+    X, y = port_batch(N)
+    X2, y2 = port_batch(N, seed=1)
+    loss, cases = entry_cases()
+    rows = []
+    release_graphs("phase 16")
+    with deterministic_cudnn():
+        for label, expect, trips, build in cases:
+            call, model_fn, params, replace, module = build()
+            label = f"entry graphs: {label}"
+
+            def eager_call(X_=X, y_=y):
+                with eager_entries():
+                    return call(X_, y_)
+
+            def fully_eager():
+                with eager_entries(), eager_body():
+                    return call(X, y)
+
+            # the capture
+            before = entry_keys()
+            _, t_first = cuda_once(lambda: untripped(lambda: call(X, y), label))
+            keys = [k for k in graphs.entries() if k in entry_keys() - before]
+            check(keys, f"{label}: the first call captured nothing")
+            entries = [graphs.entries()[k] for k in keys]
+            steps = [f"{st.fn.__name__}{list(st.args[0].shape)}" for e in entries
+                     for st in e.steps]
+            # the replay against the eager body
+            out, count = launches_of(jc, lambda: untripped(lambda: call(X, y), label))
+            check(entry_keys() == before | set(keys), f"{label}: the replay captured")
+            check(count == expect, f"{label}: {count} Jacobi launches under replay, "
+                  f"expected {expect}")
+            with uncounted():
+                ref = untripped(eager_call, label)
+            check(equal_results(out, ref), f"{label}: the replay differs from the eager body")
+            # an in-place SGD step: the same key, the new parameters read in place
+            sgd_(model_fn, params, loss, X, y)
+            stepped = call(X, y)
+            with uncounted():
+                ref = eager_call()
+            check(entry_keys() == before | set(keys),
+                  f"{label}: an in-place update captured anew")
+            check(not equal_results(stepped, out), f"{label}: the step changed nothing")
+            check(equal_results(stepped, ref), f"{label}: after an in-place SGD step the "
+                  "replay differs from a fresh eager call")
+            # a new batch: the same key
+            other = call(X2, y2)
+            with uncounted():
+                ref = eager_call(X2, y2)
+            check(entry_keys() == before | set(keys), f"{label}: a new batch captured")
+            check(equal_results(other, ref), f"{label}: on a new batch the replay differs "
+                  "from the eager call")
+            # launches outside the graphs, the trace's Jacobi executions, busy share
+            replay = launch_profile(lambda: call(X, y))
+            own = launch_profile(lambda: [st.fn(*st.args) for e in entries for st in e.steps])
+            # a class's eager rest after its program (the host criteria and
+            # what reads the kept indices), counted apart: stage hands back
+            # the entry's outputs and launches nothing
+            rest = {"outside": 0}
+            if "Computation" in label:
+                with handed_back():
+                    rest = launch_profile(lambda: call(X, y))
+            extra = replay["outside"] - own["outside"] - rest["outside"]
+            check(extra <= OUTSIDE_BAR, f"{label}: {extra} launches outside graphs beyond "
+                  "the vendor and LOBPCG steps' and the class's eager rest")
+            check(replay["jacobi"] == count, f"{label}: the trace shows {replay['jacobi']} "
+                  f"Jacobi kernels, the counter {count}")
+            solve_only = launch_profile(eager_call)
+            # times in turns: the replay, solve-only graphs (the entry eager,
+            # its chain-path solve replayed), no graphs at all
+            t_replay, t_solve, t_eager = turn_times(
+                [lambda: call(X, y), eager_call, fully_eager])
+            sizes = pool_sizes()
+            pools = [sizes[k] for k in keys]
+            # a replaced parameter tensor: a module's gives a new key, which
+            # drops the stale one; a model function's is copied in (the same key)
+            replace()
+            fresh = call(X, y)
+            now = entry_keys() - before
+            if module:
+                check(now and not now & set(keys), f"{label}: a replaced parameter tensor "
+                      "did not capture anew in place of the stale key")
+            else:
+                check(now == set(keys), f"{label}: a replaced parameter tensor captured anew")
+            check(equal_results(fresh, untripped(eager_call, label)),
+                  f"{label}: after a replaced tensor the result differs from the eager call's")
+            # a forced guard trip under replay (a new capture, the entries
+            # dropped): a zero threshold trips every solve's guard
+            trip_line = "no dc solve, no guard"
+            if trips:
+                graphs.clear()
+                solver = eigdc.eigh_dc
+                eigdc.eigh_dc = functools.partial(solver, guard=0.0)
+                try:
+                    with warnings.catch_warnings():
+                        warnings.simplefilter("ignore")
+                        call(X, y)  # the capture; its guard trips too
+                        want = eager_call()
+                    with warnings.catch_warnings(record=True) as caught:
+                        warnings.simplefilter("always")
+                        got = call(X, y)
+                finally:
+                    eigdc.eigh_dc = solver
+                warned = [w for w in caught if "guard tripped" in str(w.message)]
+                same = equal_results(got, want)
+                check(len(warned) == 1, f"{label}: the forced trip warned {len(warned)} times")
+                check(same, f"{label}: the forced trip's result is not the eager call's")
+                trip_line = (f"forced trip under replay: {len(warned)} warning, result equal "
+                             f"to the eager call's (the vendor's solve) {same}")
+            rows.append((label, np.median(t_replay), np.median(t_solve), np.median(t_eager),
+                         extra, replay["busy"] / replay["wall"], total(pools)))
+            print(f"{label}: first call {t_first:.3f} ms (capture "
+                  + " + ".join(f"{e.capture_s * 1e3:.3f}" for e in entries)
+                  + f" ms host clock, warm-up included; {len(keys)} programs, "
+                  f"{sum(len(e.graphs) for e in entries)} graphs, Jacobi launches captured "
+                  f"per graph {[e.launches for e in entries]}, eager steps {steps}, pools "
+                  + ", ".join(gb(b) for b in pools) + "); the replay bit-equal to the eager "
+                  "body, after an in-place SGD step, on a new batch and after a replaced "
+                  "parameter tensor (" + ("captured anew, the stale key dropped" if module
+                                          else "copied in, the same key")
+                  + ") equal to a fresh eager call; " + trip_line, flush=True)
+            print(f"{label}: under torch.profiler the replay {replay['wall']:.3f} ms, busy "
+                  f"{replay['busy']:.3f} ms = {replay['busy'] / replay['wall']:.1%}, launches "
+                  f"outside graphs {replay['outside']} (the eager steps' own {own['outside']}, "
+                  f"the class's eager rest after its program {rest['outside']}, the rest "
+                  f"{extra}, bar {OUTSIDE_BAR}), graph launches {replay['graphs']}, "
+                  f"Jacobi kernel executions {replay['jacobi']} (counter {count}); solve-only "
+                  f"graphs {solve_only['wall']:.3f} ms, busy "
+                  f"{solve_only['busy'] / solve_only['wall']:.1%}, launches "
+                  f"{solve_only['outside']}; times (CUDA events around one call, median "
+                  f"[min-max] of 5, in turns): replay {spread(t_replay)}, solve-only graphs "
+                  f"{spread(t_solve)}, no graphs {spread(t_eager)}; replay/solve-only "
+                  f"{np.median(t_replay) / np.median(t_solve):.3f}, replay/no graphs "
+                  f"{np.median(t_replay) / np.median(t_eager):.3f}", flush=True)
+            release_graphs(label)
+    print("entry graphs, one row per entry point (ms: median of 5 in turns, under "
+          "deterministic cuDNN): replay | solve-only graphs | no graphs | launches outside "
+          "graphs beyond the steps' and a class's eager rest | busy | pool bytes", flush=True)
+    for label, *r in rows:
+        print(f"  {label[len('entry graphs: '):]}: {r[0]:.3f} | {r[1]:.3f} | {r[2]:.3f} | "
+              f"{r[3]} | {r[4]:.1%} | {gb(r[5])}", flush=True)
+    print(f"graphs: {len(RELEASED)} keys released over the run, their memory pools summed "
+          f"{gb(total(b for _, b in RELEASED))}", flush=True)
+    check(ENTRY_REPLAYS, "no entry replay was held against its eager body")
+    unequal = [d for equal, d in ENTRY_REPLAYS if not equal]
+    print(f"entry graphs: {len(ENTRY_REPLAYS)} entry-point calls of phases 3-15 replayed "
+          f"against their eager bodies: {len(ENTRY_REPLAYS) - len(unequal)} bit-equal; the "
+          f"rest (cuDNN's default algorithms) max|Δ|/max|result| "
+          f"{max(unequal, default=0.0):.3e}, bar {ENTRY_BAR:.3e}", flush=True)
+    check(max(unequal, default=0.0) <= ENTRY_BAR,
+          "an entry replay differs from its eager body beyond ENTRY_BAR")
+
+
 def main():
     import torch
 
+    started = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
         return 2
@@ -2576,6 +3010,7 @@ def main():
         small, evecs_launches, (gram_d, _, V_d), batches = phase_eigenpairs(jc, model, N, 6)
         time_windows(jc, batches, f"eigh_topk N={N}")
         refine_launches = phase_refine(jc, gram_d, V_d)
+        release_graphs("the N=512 phases")
         spectrum_launches, spectrum, spectrum_win = phase_spectrum_large(jc, model, 4)
         large, large_launches, (gram_large, _, _), batches = phase_eigenpairs(
             jc, model, N_LARGE, 6)
@@ -2592,6 +3027,7 @@ def main():
         route_launches, route_win = phase_routes(jc, {"small": gram_d,
                                                       "large": gram_large})
         phase_graphs(jc)
+        phase_entry_graphs(jc)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAIL: {exc}", file=sys.stderr)
         return 1
@@ -2637,6 +3073,8 @@ def main():
         {**kernel, "path": path, **win, "launches": route_launches[path]}
         for path, win in route_win.items()]
     print(json.dumps({"kernels": kernels}), flush=True)
+    print(f"command time: {time.perf_counter() - started:.1f} s (from the start of main)",
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": 1}}), flush=True)

@@ -33,11 +33,9 @@ def ce_null_complement(probs: torch.Tensor) -> torch.Tensor:
     """
     u = probs.sqrt()
     c = u.shape[-1]
-    e1 = torch.zeros(c, dtype=u.dtype, device=u.device)
-    e1[0] = 1.0
-    v = u + e1
-    beta = 1.0 / (1.0 + u[:, 0])
     eye = torch.eye(c, dtype=u.dtype, device=u.device)
+    v = u + eye[0]  # e₁ (no scalar write: a captured body copies nothing from the host)
+    beta = 1.0 / (1.0 + u[:, 0])
     h = eye[None] - beta[:, None, None] * (v[:, :, None] * v[:, None, :])
     return h[:, :, 1:]
 

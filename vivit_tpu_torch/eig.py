@@ -7,6 +7,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from vivit_tpu_torch.utils.graphs import eager
+
 
 def no_trip_info(device=None) -> dict:
     """Guard-info constant for eigensolves that cannot trip a guard (same
@@ -40,9 +42,9 @@ def full_eigh(
     if backend != "xla":
         raise ValueError(f"Unknown eig backend {backend!r} (use 'xla' or 'dc').")
     if eigenvectors:
-        evals, evecs = torch.linalg.eigh(gram)
+        evals, evecs = eager(torch.linalg.eigh, gram)
     else:
-        evals, evecs = torch.linalg.eigvalsh(gram), None
+        evals, evecs = eager(torch.linalg.eigvalsh, gram), None
     if return_info:
         return evals, evecs, no_trip_info(gram.device)
     return evals, evecs
@@ -58,29 +60,37 @@ def topk_eigh(gram: torch.Tensor, k: int, solver: str = "eigh",
     info (all zeros otherwise).  ``solver="lobpcg"`` runs at most
     ``lobpcg_iters`` LOBPCG iterations (:mod:`vivit_tpu_torch.lobpcg`;
     ``5·k < dim``) from a normal start block drawn from a generator on the
-    Gram's device seeded with ``k``.
+    Gram's device seeded with ``k``.  Inside a captured body the vendor
+    solve, and the whole LOBPCG call, run as one eager step each
+    (:func:`vivit_tpu_torch.utils.graphs.eager`): both read the host.
     """
     if solver == "eigh":
-        evals, evecs = torch.linalg.eigh(gram)
+        evals, evecs = eager(torch.linalg.eigh, gram)
         info = no_trip_info(gram.device)
     elif solver == "dc":
         from vivit_tpu_torch.eigdc import eigh_dc
 
         evals, evecs, info = eigh_dc(gram, return_info=True)
     elif solver == "lobpcg":
-        from vivit_tpu_torch.lobpcg import lobpcg_standard
-
-        gen = torch.Generator(device=gram.device).manual_seed(k)
-        x0 = torch.randn((gram.shape[0], k), generator=gen, dtype=gram.dtype,
-                         device=gram.device)
-        theta, u, _ = lobpcg_standard(gram, x0, m=lobpcg_iters)
-        order = torch.argsort(theta)  # the Rayleigh-Ritz order is descending
-        out = (theta[order], u[:, order])
+        out = eager(_lobpcg_topk, gram, k, lobpcg_iters)
         return (*out, no_trip_info(gram.device)) if return_info else out
     else:
         raise ValueError(f"Unknown solver {solver!r} (use 'eigh', 'lobpcg' or 'dc').")
     out = (evals[-k:], evecs[:, -k:])
     return (*out, info) if return_info else out
+
+
+def _lobpcg_topk(gram, k, lobpcg_iters):
+    """LOBPCG's top-``k`` of ``gram``, ascending, from its seeded start
+    block (one host read per iteration)."""
+    from vivit_tpu_torch.lobpcg import lobpcg_standard
+
+    gen = torch.Generator(device=gram.device).manual_seed(k)
+    x0 = torch.randn((gram.shape[0], k), generator=gen, dtype=gram.dtype,
+                     device=gram.device)
+    theta, u, _ = lobpcg_standard(gram, x0, m=lobpcg_iters)
+    order = torch.argsort(theta)  # the Rayleigh-Ritz order is descending
+    return theta[order], u[:, order]
 
 
 def shift_diag(mat: torch.Tensor, shift: float) -> torch.Tensor:

@@ -49,7 +49,10 @@ later call replays it (:func:`vivit_tpu_torch.utils.graphs.run`).  The
 vendor solves of the leaves and edge blocks (``torch.linalg.eigh``, which
 reads cuSOLVER's status on the host) run eagerly between the graphs; the
 guard's read, its warning and its fallback run after the last one.  The
-strip path and a CPU tensor run eagerly.
+strip path and a CPU tensor run eagerly.  Inside an entry point's captured
+call (:func:`vivit_tpu_torch.utils.graphs.stage`) the solve is part of the
+call's body: it opens no graphs of its own, and its guard hands its verdict
+to the call, which reads it after the replay (:func:`_deferred`).
 
 Random draws come from one ``torch.Generator`` on the matrix's device
 (seed 0 unless one is given), so results match the JAX package to
@@ -663,7 +666,9 @@ def eigh_dc(
     int ``key`` (default 0).  On a CUDA tensor below the strip the first
     call per ``n``, mode and resolved knobs captures the solve as CUDA
     graphs and later calls replay them, with any ``key`` and ``guard``;
-    :func:`vivit_tpu_torch.utils.graphs.clear` drops them.
+    :func:`vivit_tpu_torch.utils.graphs.clear` drops them.  Inside a
+    captured entry point's body the solve runs inline and its guard is read
+    after the call's replay.
 
     ``guard``: threshold of the runtime self-check (perturbation bound of the
     remaining couplings, and orthonormality drift of the significant basis
@@ -677,9 +682,9 @@ def eigh_dc(
         H = (0.5 * (H + H.T)).to(_F32)
         if n <= max(base, 2 * _MARGIN):
             if eigenvectors:
-                evals, evecs = torch.linalg.eigh(H)
+                evals, evecs = graphs.eager(torch.linalg.eigh, H)
             else:
-                evals, evecs = torch.linalg.eigvalsh(H), None
+                evals, evecs = graphs.eager(torch.linalg.eigvalsh, H), None
             return ((evals, evecs, no_trip_info(H.device)) if return_info
                     else (evals, evecs))
         strip_on = strip != 0 and n >= (strip or _STRIP_MIN)
@@ -708,15 +713,15 @@ def eigh_dc(
         solve = _solve_captured if H.is_cuda and not strip_on else _solve_eager
         out = solve(H, 0 if key is None else key, cfg, polish, eigenvectors,
                     guard is not None)
+        if graphs.deferring():
+            return _deferred(H, *out, guard, return_info)
         return _guarded(H, *out, eigenvectors, guard, return_info)
 
 
 def _solve_eager(H, seed, cfg, polish, eigenvectors, guarded):
     """:func:`_solve` run eagerly, its draws from a generator on ``H``'s
     device seeded with ``seed``."""
-    gen = torch.Generator(device=H.device)
-    gen.manual_seed(seed)
-    return _solve(gen, H, cfg, polish, eigenvectors, guarded)
+    return _solve(graphs.generator(H.device, seed), H, cfg, polish, eigenvectors, guarded)
 
 
 def _solve_captured(H, seed, cfg, polish, eigenvectors, guarded):
@@ -843,6 +848,21 @@ def _guarded(H, evals, evecs, bound, orth, nan, eigenvectors, guard, return_info
             evals, evecs = torch.linalg.eigh(H)
         else:
             evals = torch.linalg.eigvalsh(H)
+    return (evals, evecs, info) if return_info else (evals, evecs)
+
+
+def _deferred(H, evals, evecs, bound, orth, nan, guard, return_info):
+    """The guard inside an entry point's captured body, which reads nothing
+    on the host: its verdict goes to the entry
+    (:func:`vivit_tpu_torch.utils.graphs.guard`), which reads it after the
+    replay and, past ``guard``, runs the call again eagerly, where
+    :func:`_guarded` warns and takes the vendor's result."""
+    if guard is None:
+        info = no_trip_info(H.device)
+    else:
+        bad = (bound > guard) | (orth > guard) | nan
+        graphs.guard(bad)
+        info = {"tripped": bad, "bound": bound, "orth": orth}
     return (evals, evecs, info) if return_info else (evals, evecs)
 
 

@@ -19,14 +19,18 @@ import torch
 
 from vivit_tpu_torch.losses import Loss
 from vivit_tpu_torch.utils.checks import check_subsampling_unique
+from vivit_tpu_torch.utils.graphs import constant
 
 ModelFn = Callable[[Dict[str, torch.Tensor], torch.Tensor], torch.Tensor]
 
 
 def _subsample(X, y, subsampling):
+    """The rows ``subsampling`` of ``X`` and ``y``; the index tensor is a
+    constant of a captured body (:func:`vivit_tpu_torch.utils.graphs.constant`),
+    as a host-to-device copy cannot be captured."""
     if subsampling is None:
         return X, y
-    idx = torch.as_tensor(list(subsampling), device=X.device)
+    idx = constant(lambda: torch.as_tensor(list(subsampling), device=X.device))
     return X[idx], y[idx]
 
 

@@ -18,6 +18,7 @@ from vivit_tpu_torch.linalg.utils import (
     group_key,
     kept_indices,
     resolve_param_groups,
+    stage1,
     start_compute,
     warn_if_small,
 )
@@ -77,33 +78,47 @@ def eigh_topk(
     Gram and lifts the vectors back; it needs ``k ≤ (C−1)·S``.
     ``mc_samples``/``key`` select Monte-Carlo factors; ``engine`` and
     ``conv_vt_dtype`` (the conv blocks' storage dtype) apply to a module.
+    On the card the call is captured as CUDA graphs and replayed by key
+    (:func:`vivit_tpu_torch.utils.graphs.stage`).
     """
     from vivit_tpu_torch.deflate import ce_probs, check_deflatable, deflated_topk_eigh
     from vivit_tpu_torch.eig import topk_eigh
     from vivit_tpu_torch.engines import build_vt, gram_any, resolve_model
     from vivit_tpu_torch.ggn import _subsample
     from vivit_tpu_torch.precision import _PRECISIONS, matmul_precision
+    from vivit_tpu_torch.utils import graphs
     from vivit_tpu_torch.utils.device import inputs_on
 
     model_fn, fwd_params = resolve_model(model, params)
     if deflate_ce_null:
         check_deflatable(loss, mc_samples)
     X, y = inputs_on(model, X, y, device, params=params)
-    if paths is None:
-        paths = list(fwd_params)
+    paths = tuple(fwd_params) if paths is None else tuple(paths)
 
-    with matmul_precision(precision):
-        vt = build_vt(model, loss, params, X, y, subsampling=subsampling,
-                      mc_samples=mc_samples, key=key, batch_size=batch_size,
-                      engine=engine, conv_vt_dtype=conv_vt_dtype)
-        gram = gram_any(vt, paths, precision=_PRECISIONS[gram_precision])
-        if deflate_ce_null:
-            probs = ce_probs(model_fn, _subsample(X, y, subsampling)[0], fwd_params)
-            evals, evecs = deflated_topk_eigh(gram, probs, k, solver=solver,
-                                              lobpcg_iters=lobpcg_iters)
-        else:
-            evals, evecs = topk_eigh(gram, k, solver=solver, lobpcg_iters=lobpcg_iters)
-        return evals, backproject(vt, evecs, evals, paths)
+    def body(X, y, params):
+        with matmul_precision(precision):
+            vt = build_vt(model, loss, params, X, y, subsampling=subsampling,
+                          mc_samples=mc_samples, key=key, batch_size=batch_size,
+                          engine=engine, conv_vt_dtype=conv_vt_dtype)
+            gram = gram_any(vt, paths, precision=_PRECISIONS[gram_precision])
+            if deflate_ce_null:
+                probs = ce_probs(model_fn, _subsample(X, y, subsampling)[0],
+                                 fwd_params if params is None else params)
+                evals, evecs = deflated_topk_eigh(gram, probs, k, solver=solver,
+                                                  lobpcg_iters=lobpcg_iters)
+            else:
+                evals, evecs = topk_eigh(gram, k, solver=solver, lobpcg_iters=lobpcg_iters)
+            return evals, backproject(vt, evecs, evals, paths)
+
+    cache_key = graphs.entry_key(
+        "eigh_topk", model, fwd_params, X, y, loss, k=k, paths=paths,
+        subsampling=subsampling, mc_samples=mc_samples, batch_size=batch_size,
+        precision=precision, gram_precision=gram_precision, solver=solver,
+        lobpcg_iters=lobpcg_iters, deflate_ce_null=deflate_ce_null, engine=engine,
+        conv_vt_dtype=conv_vt_dtype)
+    return graphs.entry(cache_key, body, X, y, params, lambda: graphs.captured(
+        X, mc_samples, solver,
+        lambda: graphs.gram_side(model_fn, fwd_params, X, subsampling, deflate_ce_null)))
 
 
 def _gram_eigh_all(model, loss, X, y, *, params, group_paths, subsampling, mc_samples,
@@ -153,6 +168,10 @@ class EighComputation:
     back exact with their analytic eigenvectors.  The model forms,
     ``compute``'s ``params=``/``key=``, ``self_check`` and ``device`` are
     those of :class:`~vivit_tpu_torch.linalg.eigvalsh.EigvalshComputation`.
+    On the card the Gram eigendecompositions of ``compute`` run as one
+    captured program (:func:`vivit_tpu_torch.linalg.utils.stage1`); the
+    criteria read the host after it and the kept columns' back-projection
+    runs eagerly.
     """
 
     def __init__(
@@ -201,6 +220,7 @@ class EighComputation:
         """Run the computation on the batch ``(X, y)``; returns ``(evals,
         evecs)`` per group."""
         from vivit_tpu_torch.precision import matmul_precision
+        from vivit_tpu_torch.utils import graphs
 
         X, y, diff_params = start_compute(self, X, y, params)
         param_groups = resolve_param_groups(
@@ -211,8 +231,12 @@ class EighComputation:
 
         results = []
         with matmul_precision(self._precision):
-            vt, eigs = _gram_eigh_all(self._model, self._loss, X, y, params=params,
-                                      group_paths=group_paths, key=key, **self._stage1)
+            (vt, eigs), replayed = stage1(
+                self, "EighComputation", self._stage1, X, y, params, group_paths,
+                lambda X, y, params: _gram_eigh_all(
+                    self._model, self._loss, X, y, params=params, group_paths=group_paths,
+                    key=key, **self._stage1),
+                self._stage1["eig_backend"])
             for group, paths, (gram_evals, gram_evecs, info) in zip(
                     param_groups, group_paths, eigs):
                 keep = kept_indices(group["criterion"], gram_evals)
@@ -221,7 +245,7 @@ class EighComputation:
                 evecs = backproject(vt, gram_evecs[:, keep], evals, paths)
                 self._evals[group_key(group)] = evals
                 self._evecs[group_key(group)] = evecs
-                self._eig_info[group_key(group)] = info
+                self._eig_info[group_key(group)] = graphs.clone(info) if replayed else info
                 results.append((evals, evecs))
         return results
 

@@ -49,7 +49,9 @@ def eigvalsh(
     deflated Gram and returns the ``S`` structural zeros exactly.
     ``device`` defaults to the CUDA card; the parameters must lie there.
     ``engine``, ``conv_vt_dtype`` and the ``batch_size`` default apply to a
-    module, ``params`` and ``batch_size`` to a model function.
+    module, ``params`` and ``batch_size`` to a model function.  On the card
+    the call is captured as CUDA graphs and replayed by key
+    (:func:`vivit_tpu_torch.utils.graphs.stage`).
     """
     from vivit_tpu_torch.engines import is_module, resolve_model
 
@@ -69,6 +71,7 @@ def eigvalsh(
     from vivit_tpu_torch.ggn import _subsample, ggn_sqrt_vt
     from vivit_tpu_torch.gram import gram_matrix
     from vivit_tpu_torch.precision import _PRECISIONS, matmul_precision
+    from vivit_tpu_torch.utils import graphs
     from vivit_tpu_torch.utils.device import inputs_on
 
     params = fwd_params
@@ -77,20 +80,32 @@ def eigvalsh(
     X, y = inputs_on(model, X, y, device, params=params)
     if group_paths is None:
         group_paths = (tuple(params),)
-    with matmul_precision(precision):
-        vt = ggn_sqrt_vt(model_fn, loss, params, X, y, subsampling=subsampling,
-                         mc_samples=mc_samples, key=key, batch_size=batch_size)
-        probs = None
-        if deflate_ce_null:
-            probs = ce_probs(model_fn, _subsample(X, y, subsampling)[0], params)
-        evals = []
-        for paths in group_paths:
-            gram = gram_matrix(vt, paths=paths, precision=_PRECISIONS[gram_precision])
-            if probs is not None:
-                evals.append(deflated_eigvalsh(gram, probs, backend=eig_backend))
-            else:
-                evals.append(full_eigh(gram, backend=eig_backend, eigenvectors=False)[0])
-    return tuple(evals)
+    group_paths = tuple(tuple(paths) for paths in group_paths)
+
+    def body(X, y, params):
+        with matmul_precision(precision):
+            vt = ggn_sqrt_vt(model_fn, loss, params, X, y, subsampling=subsampling,
+                             mc_samples=mc_samples, key=key, batch_size=batch_size)
+            probs = None
+            if deflate_ce_null:
+                probs = ce_probs(model_fn, _subsample(X, y, subsampling)[0], params)
+            evals = []
+            for paths in group_paths:
+                gram = gram_matrix(vt, paths=paths, precision=_PRECISIONS[gram_precision])
+                if probs is not None:
+                    evals.append(deflated_eigvalsh(gram, probs, backend=eig_backend))
+                else:
+                    evals.append(full_eigh(gram, backend=eig_backend, eigenvectors=False)[0])
+        return tuple(evals)
+
+    cache_key = graphs.entry_key(
+        "eigvalsh", model, params, X, y, loss, group_paths=group_paths,
+        subsampling=subsampling, mc_samples=mc_samples, batch_size=batch_size,
+        precision=precision, gram_precision=gram_precision, eig_backend=eig_backend,
+        deflate_ce_null=deflate_ce_null)
+    return graphs.entry(cache_key, body, X, y, params, lambda: graphs.captured(
+        X, mc_samples, eig_backend,
+        lambda: graphs.gram_side(model_fn, params, X, subsampling, deflate_ce_null)))
 
 
 class EigvalshComputation:
@@ -109,7 +124,9 @@ class EigvalshComputation:
     ``"params"``, lists of parameter names; ``param_groups=None`` is one
     group of all.  ``key`` (an int) seeds the Monte-Carlo draws.
     ``self_check`` runs :func:`vivit_tpu_torch.utils.checks.check_model_fn`
-    on the first ``compute``.  ``device`` defaults to the CUDA card.
+    on the first ``compute``.  ``device`` defaults to the CUDA card, where
+    ``compute`` replays the captured :func:`eigvalsh` (or
+    :func:`~vivit_tpu_torch.structured.eigvalsh_structured` for a module).
     """
 
     def __init__(

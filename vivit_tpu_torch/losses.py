@@ -22,6 +22,8 @@ from typing import Callable
 import torch
 import torch.nn.functional as F
 
+from vivit_tpu_torch.utils.graphs import eager
+
 _MASK64 = (1 << 64) - 1
 
 
@@ -89,7 +91,7 @@ class Loss:
             return self.per_sample(f_n[None], y_n[None])[0]
 
         hess = vmap(hessian(sample_loss))(f, y)
-        evals, evecs = torch.linalg.eigh(hess)
+        evals, evecs = eager(torch.linalg.eigh, hess)  # a vendor step when captured
         root = evecs * evals.clamp(min=0.0).sqrt()[..., None, :]
         return root.transpose(-1, -2)
 

@@ -18,6 +18,7 @@ from vivit_tpu_torch.linalg.utils import (
     group_key,
     kept_indices,
     resolve_param_groups,
+    stage1,
     start_compute,
     warn_if_small,
 )
@@ -25,17 +26,20 @@ from vivit_tpu_torch.losses import Loss
 from vivit_tpu_torch.optim.utils import (
     derivatives_stage1,
     gammas_lambdas,
-    topk_derivatives,
+    topk_entry,
 )
 from vivit_tpu_torch.utils.checks import check_subsampling_unique
 
 
 def constant_damping(value: float = 1.0):
-    """Damping callable: ``δ_k = value`` for every direction."""
+    """Damping callable: ``δ_k = value`` for every direction.  Its
+    ``graph_key`` keys a captured call by ``value``
+    (:func:`vivit_tpu_torch.utils.graphs.entry_key`)."""
 
     def damping(evals, evecs, gammas, lambdas):
         return value * torch.ones_like(evals)
 
+    damping.graph_key = ("constant_damping", value)
     return damping
 
 
@@ -93,21 +97,26 @@ def newton_step_topk(
     runs the top-``k`` on the Gram-level deflated Gram;
     ``mc_samples_ggn``/``key`` select Monte-Carlo GGN factors;
     ``conv_vt_dtype`` stores a module's conv blocks demoted.  ``device``
-    defaults to the CUDA card.
+    defaults to the CUDA card, where the call is captured as CUDA graphs
+    and replayed by key (:func:`vivit_tpu_torch.utils.graphs.stage`): a
+    ``damping`` callable runs inside the capture and must not read the
+    host.
     """
-    vt, paths, evals_sel, evecs_sel, gammas, lambdas = topk_derivatives(
-        model, loss, X, y, k, params=params, paths=paths,
+    def finish(vt, paths, evals_sel, evecs_sel, gammas, lambdas):
+        if callable(damping):
+            dampings = damping(evals_sel, evecs_sel, gammas, lambdas)
+        else:
+            dampings = damping * torch.ones_like(evals_sel)
+        return newton_step_from_derivatives(vt, paths, evals_sel, evecs_sel, gammas,
+                                            lambdas, dampings)
+
+    return topk_entry(
+        "newton_step_topk", finish, model, loss, X, y, k, params=params, paths=paths,
         subsampling_grad=subsampling_grad, subsampling_ggn=subsampling_ggn,
         mc_samples_ggn=mc_samples_ggn, key=key, batch_size=batch_size,
         precision=precision, gram_precision=gram_precision, solver=solver,
         lobpcg_iters=lobpcg_iters, deflate_ce_null=deflate_ce_null, engine=engine,
-        device=device, conv_vt_dtype=conv_vt_dtype)
-    if callable(damping):
-        dampings = damping(evals_sel, evecs_sel, gammas, lambdas)
-    else:
-        dampings = damping * torch.ones_like(evals_sel)
-    return newton_step_from_derivatives(vt, paths, evals_sel, evecs_sel, gammas,
-                                        lambdas, dampings)
+        device=device, conv_vt_dtype=conv_vt_dtype, damping=damping)
 
 
 class DirectionalDampedNewtonComputation:
@@ -124,7 +133,10 @@ class DirectionalDampedNewtonComputation:
     a top-``k_top`` solve (``"eigh"``, ``"lobpcg"``, ``"dc"``); the
     criterion then sees only those ``k_top`` eigenvalues.  ``self_check``
     runs :func:`vivit_tpu_torch.utils.checks.check_model_fn` on the first
-    ``compute``.  ``device`` defaults to the CUDA card.
+    ``compute``.  ``device`` defaults to the CUDA card, where ``compute``
+    runs the V-transform and each group's Gram solve as one captured
+    program (:func:`vivit_tpu_torch.linalg.utils.stage1`); the criteria,
+    dampings and steps run eagerly after it.
     """
 
     def __init__(
@@ -191,9 +203,13 @@ class DirectionalDampedNewtonComputation:
             print(f"DirectionalDampedNewtonComputation: groups {group_paths}")
         s_ggn = (len(self._subsampling_ggn) if self._subsampling_ggn is not None
                  else X.shape[0])
-        vt, per_group = derivatives_stage1(self._model, self._loss, X, y, params=params,
-                                           group_paths=group_paths, key=key,
-                                           **self._stage1)
+        settings = self._stage1
+        (vt, per_group), _ = stage1(
+            self, "DirectionalDampedNewtonComputation", settings, X, y, params, group_paths,
+            lambda X, y, params: derivatives_stage1(
+                self._model, self._loss, X, y, params=params, group_paths=group_paths,
+                key=key, **settings),
+            settings["solver"] if settings["k_top"] is not None else settings["eig_backend"])
 
         results = []
         with matmul_precision(self._precision):

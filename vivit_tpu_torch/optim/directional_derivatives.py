@@ -11,6 +11,7 @@ from vivit_tpu_torch.linalg.utils import (
     group_key,
     kept_indices,
     resolve_param_groups,
+    stage1,
     start_compute,
     warn_if_small,
 )
@@ -18,7 +19,7 @@ from vivit_tpu_torch.losses import Loss
 from vivit_tpu_torch.optim.utils import (
     derivatives_stage1,
     gammas_lambdas,
-    topk_derivatives,
+    topk_entry,
 )
 from vivit_tpu_torch.utils.checks import check_subsampling_unique
 
@@ -50,16 +51,19 @@ def directional_derivatives_topk(
     The model forms and knobs as in
     :func:`~vivit_tpu_torch.optim.newton_step_topk`.  As in the JAX
     package, there is no ``lobpcg_iters``: ``solver="lobpcg"`` runs its
-    default 100 iterations at most.  ``device`` defaults to the CUDA card.
+    default 100 iterations at most.  ``device`` defaults to the CUDA card,
+    where the call is captured as CUDA graphs and replayed by key
+    (:func:`vivit_tpu_torch.utils.graphs.stage`).
     """
-    _, _, evals_sel, _, gammas, lambdas = topk_derivatives(
+    return topk_entry(
+        "directional_derivatives_topk",
+        lambda vt, paths, evals_sel, evecs_sel, gammas, lambdas: (evals_sel, gammas, lambdas),
         model, loss, X, y, k, params=params, paths=paths,
         subsampling_grad=subsampling_grad, subsampling_ggn=subsampling_ggn,
         mc_samples_ggn=mc_samples_ggn, key=key, batch_size=batch_size,
         precision=precision, gram_precision=gram_precision, solver=solver,
         lobpcg_iters=100, deflate_ce_null=deflate_ce_null, engine=engine,
         device=device)
-    return evals_sel, gammas, lambdas
 
 
 class DirectionalDerivativesComputation:
@@ -71,7 +75,10 @@ class DirectionalDerivativesComputation:
     ``param_groups`` entries carry ``"params"`` (parameter names) and
     ``"criterion"``.  Result per group: ``(gammas [N_grad, K], lambdas
     [S_ggn, K])`` with ``γ[n, k] = g_nᵀ e_k`` and ``λ[n, k] = e_kᵀ (J_nᵀ H_n
-    J_n) e_k``.  ``device`` defaults to the CUDA card.
+    J_n) e_k``.  ``device`` defaults to the CUDA card, where ``compute``
+    runs the V-transform and each group's Gram solve as one captured
+    program (:func:`vivit_tpu_torch.linalg.utils.stage1`); the criteria
+    and γ/λ run eagerly after it.
     """
 
     def __init__(
@@ -130,9 +137,12 @@ class DirectionalDerivativesComputation:
             print(f"DirectionalDerivativesComputation: groups {group_paths}")
         s_ggn = (len(self._subsampling_ggn) if self._subsampling_ggn is not None
                  else X.shape[0])
-        _, per_group = derivatives_stage1(self._model, self._loss, X, y, params=params,
-                                          group_paths=group_paths, key=key,
-                                          **self._stage1)
+        (_, per_group), _ = stage1(
+            self, "DirectionalDerivativesComputation", self._stage1, X, y, params,
+            group_paths, lambda X, y, params: derivatives_stage1(
+                self._model, self._loss, X, y, params=params, group_paths=group_paths,
+                key=key, **self._stage1),
+            self._stage1["eig_backend"])
 
         results = []
         with matmul_precision(self._precision):

@@ -134,20 +134,24 @@ def gammas_lambdas(
     return gammas, lambdas
 
 
-def topk_derivatives(model, loss, X, y, k, *, params, paths, subsampling_grad,
-                     subsampling_ggn, mc_samples_ggn, key, batch_size, precision,
-                     gram_precision, solver, lobpcg_iters, deflate_ce_null, engine,
-                     device, conv_vt_dtype=None):
-    """The top-``k`` half shared by :func:`~vivit_tpu_torch.optim.newton_step_topk`
-    and :func:`~vivit_tpu_torch.optim.directional_derivatives_topk`: stage 1
-    without eigensolve, the (optionally deflated) top-``k`` and γ/λ.
-
-    Returns ``(vt, paths, evals_sel, evecs_sel, gammas, lambdas)``.
+def topk_entry(name, finish, model, loss, X, y, k, *, params, paths, subsampling_grad,
+               subsampling_ggn, mc_samples_ggn, key, batch_size, precision,
+               gram_precision, solver, lobpcg_iters, deflate_ce_null, engine,
+               device, conv_vt_dtype=None, **settings):
+    """The entry point ``name`` over the top-``k`` half shared by
+    :func:`~vivit_tpu_torch.optim.newton_step_topk` and
+    :func:`~vivit_tpu_torch.optim.directional_derivatives_topk`: stage 1
+    without eigensolve, the (optionally deflated) top-``k`` and γ/λ, then
+    ``finish(vt, paths, evals_sel, evecs_sel, gammas, lambdas)``, the
+    entry's result.  On the card the call is captured as CUDA graphs and
+    replayed by key (:func:`vivit_tpu_torch.utils.graphs.stage`; ``settings``
+    are the rest of the key, e.g. the damping).
     """
     from vivit_tpu_torch.eig import topk_eigh
     from vivit_tpu_torch.engines import resolve_model
     from vivit_tpu_torch.ggn import _subsample
     from vivit_tpu_torch.precision import matmul_precision
+    from vivit_tpu_torch.utils import graphs
     from vivit_tpu_torch.utils.device import inputs_on
 
     model_fn, fwd_params = resolve_model(model, params)
@@ -156,26 +160,39 @@ def topk_derivatives(model, loss, X, y, k, *, params, paths, subsampling_grad,
 
         check_deflatable(loss, mc_samples_ggn)
     X, y = inputs_on(model, X, y, device, params=params)
-    if paths is None:
-        paths = list(fwd_params)
+    paths = list(fwd_params) if paths is None else list(paths)
     n = batch_size if batch_size is not None else X.shape[0]
     s_ggn = len(subsampling_ggn) if subsampling_ggn is not None else n
-    vt, ((gram, _, _, v_t_g),) = derivatives_stage1(
-        model, loss, X, y, params=params, group_paths=(tuple(paths),),
-        subsampling_grad=subsampling_grad, subsampling_ggn=subsampling_ggn,
-        mc_samples_ggn=mc_samples_ggn, key=key, batch_size=batch_size,
-        precision=precision, gram_precision=gram_precision, compute_eigh=False,
-        engine=engine, conv_vt_dtype=conv_vt_dtype,
-    )
-    with matmul_precision(precision):
-        if deflate_ce_null:
-            from vivit_tpu_torch.deflate import ce_probs, deflated_topk_eigh
 
-            probs = ce_probs(model_fn, _subsample(X, y, subsampling_ggn)[0], fwd_params)
-            evals_sel, evecs_sel = deflated_topk_eigh(
-                gram, probs, k, solver=solver, lobpcg_iters=lobpcg_iters)
-        else:
-            evals_sel, evecs_sel = topk_eigh(gram, k, solver=solver,
-                                             lobpcg_iters=lobpcg_iters)
-        gammas, lambdas = gammas_lambdas(gram, evals_sel, evecs_sel, v_t_g, s_ggn)
-    return vt, paths, evals_sel, evecs_sel, gammas, lambdas
+    def body(X, y, params):
+        vt, ((gram, _, _, v_t_g),) = derivatives_stage1(
+            model, loss, X, y, params=params, group_paths=(tuple(paths),),
+            subsampling_grad=subsampling_grad, subsampling_ggn=subsampling_ggn,
+            mc_samples_ggn=mc_samples_ggn, key=key, batch_size=batch_size,
+            precision=precision, gram_precision=gram_precision, compute_eigh=False,
+            engine=engine, conv_vt_dtype=conv_vt_dtype,
+        )
+        with matmul_precision(precision):
+            if deflate_ce_null:
+                from vivit_tpu_torch.deflate import ce_probs, deflated_topk_eigh
+
+                probs = ce_probs(model_fn, _subsample(X, y, subsampling_ggn)[0],
+                                 fwd_params if params is None else params)
+                evals_sel, evecs_sel = deflated_topk_eigh(
+                    gram, probs, k, solver=solver, lobpcg_iters=lobpcg_iters)
+            else:
+                evals_sel, evecs_sel = topk_eigh(gram, k, solver=solver,
+                                                 lobpcg_iters=lobpcg_iters)
+            gammas, lambdas = gammas_lambdas(gram, evals_sel, evecs_sel, v_t_g, s_ggn)
+            return finish(vt, paths, evals_sel, evecs_sel, gammas, lambdas)
+
+    cache_key = graphs.entry_key(
+        name, model, fwd_params, X, y, loss, k=k, paths=paths,
+        subsampling_grad=subsampling_grad, subsampling_ggn=subsampling_ggn,
+        mc_samples_ggn=mc_samples_ggn, batch_size=batch_size, precision=precision,
+        gram_precision=gram_precision, solver=solver, lobpcg_iters=lobpcg_iters,
+        deflate_ce_null=deflate_ce_null, engine=engine, conv_vt_dtype=conv_vt_dtype,
+        **settings)
+    return graphs.entry(cache_key, body, X, y, params, lambda: graphs.captured(
+        X, mc_samples_ggn, solver,
+        lambda: graphs.gram_side(model_fn, fwd_params, X, subsampling_ggn, deflate_ce_null)))

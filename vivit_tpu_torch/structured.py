@@ -304,10 +304,15 @@ def eigvalsh_structured(
     conv blocks' storage dtype (``torch.bfloat16`` beside the bf16 Gram
     gives the same Gram).  ``return_eig_info``:
     return ``(evals_per_group, infos_per_group)`` with the eigensolver's
-    guard info.
+    guard info.  On the card the call is captured
+    (:func:`vivit_tpu_torch.utils.graphs.captured`): its first call per key
+    (:func:`vivit_tpu_torch.utils.graphs.entry_key`) captures it as CUDA
+    graphs, later calls replay them.
     """
     from vivit_tpu_torch.eig import full_eigh
+    from vivit_tpu_torch.engines import forward_fn, module_params
     from vivit_tpu_torch.precision import _PRECISIONS, matmul_precision
+    from vivit_tpu_torch.utils import graphs
     from vivit_tpu_torch.utils.device import inputs_on
 
     if deflate_ce_null:
@@ -315,27 +320,37 @@ def eigvalsh_structured(
 
         check_deflatable(loss, mc_samples)
     X, y = inputs_on(module, X, y, device)
+    if group_paths is None:
+        group_paths = (tuple(n for n, _ in module.named_parameters()),)
+    group_paths = tuple(tuple(paths) for paths in group_paths)
+    s = X.shape[0] if subsampling is None else len(subsampling)
 
-    with matmul_precision(precision):
-        vt = structured_ggn_sqrt_vt(module, loss, X, y, subsampling=subsampling,
-                                    mc_samples=mc_samples, key=key,
-                                    deflate_ce_null=deflate_ce_null, engine=engine,
-                                    conv_vt_dtype=conv_vt_dtype)
-        if group_paths is None:
-            group_paths = (tuple(n for n, _ in module.named_parameters()),)
-        s = X.shape[0] if subsampling is None else len(subsampling)
+    def body(X, y, _params):
+        with matmul_precision(precision):
+            vt = structured_ggn_sqrt_vt(module, loss, X, y, subsampling=subsampling,
+                                        mc_samples=mc_samples, key=key,
+                                        deflate_ce_null=deflate_ce_null, engine=engine,
+                                        conv_vt_dtype=conv_vt_dtype)
+            evals, infos = [], []
+            for paths in group_paths:
+                gram = gram_matrix_mixed(
+                    vt, paths, generic_precision=_PRECISIONS[gram_precision])
+                ev, _, info = full_eigh(gram, backend=eig_backend,
+                                        eigenvectors=False, return_info=True)
+                if deflate_ce_null:
+                    zeros = torch.zeros(s, dtype=ev.dtype, device=ev.device)
+                    ev = torch.sort(torch.cat([zeros, ev])).values
+                evals.append(ev)
+                infos.append(info)
+        if return_eig_info:
+            return tuple(evals), tuple(infos)
+        return tuple(evals)
 
-        evals, infos = [], []
-        for paths in group_paths:
-            gram = gram_matrix_mixed(
-                vt, paths, generic_precision=_PRECISIONS[gram_precision])
-            ev, _, info = full_eigh(gram, backend=eig_backend,
-                                    eigenvectors=False, return_info=True)
-            if deflate_ce_null:
-                zeros = torch.zeros(s, dtype=ev.dtype, device=ev.device)
-                ev = torch.sort(torch.cat([zeros, ev])).values
-            evals.append(ev)
-            infos.append(info)
-    if return_eig_info:
-        return tuple(evals), tuple(infos)
-    return tuple(evals)
+    cache_key = graphs.entry_key(
+        "eigvalsh_structured", module, None, X, y, loss, group_paths=group_paths,
+        subsampling=subsampling, mc_samples=mc_samples, precision=precision, gram_precision=gram_precision,
+        eig_backend=eig_backend, deflate_ce_null=deflate_ce_null, engine=engine,
+        conv_vt_dtype=conv_vt_dtype, return_eig_info=return_eig_info)
+    return graphs.entry(cache_key, body, X, y, None, lambda: graphs.captured(
+        X, mc_samples, eig_backend, lambda: graphs.gram_side(
+            forward_fn(module), module_params(module), X, subsampling, deflate_ce_null)))

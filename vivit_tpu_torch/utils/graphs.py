@@ -15,21 +15,37 @@ graph, step, graph, ... in that order.
 Per key the cache holds an :class:`Entry`: its graphs, sharing one memory
 pool; its eager steps with their static inputs and outputs; the static
 inputs (copied in before each replay) and outputs (cloned out after it, so
-that the next replay cannot overwrite what a caller holds); a generator
+that the next replay cannot overwrite what a caller holds); generators
 registered with every graph and re-seeded before each replay, so that a
-replay draws what an eager call with the same seed draws; and the Jacobi
+replay draws what an eager call with the same seeds draws; and the Jacobi
 kernel's launches captured in each graph, which every replay adds to
 ``jacobi_cuda.LAUNCHES``.
 
+Bodies nest.  Inside a running body :func:`run` captures nothing of its
+own: its ``fn`` runs inline, its draws from a generator of its own
+(:func:`generator`, seeded as an eager call seeds it), its eager steps
+become the outer body's, and it opens no cache entry.  Whole calls of the
+package's entry points are captured this way (:func:`stage`, keyed by
+:func:`entry_key`, routed by :func:`captured`): the V-transform, the Gram,
+the chain-path solves and what follows them are one body.  What such a
+body needs from the host it takes through :func:`constant`, made once
+before the capture and held by the entry; a solve's guard hands its
+verdict to :func:`guard`, read after the replay.
+
 The first call per key runs ``fn`` eagerly once on a side stream, which
 builds what is made at first use (the kernel's ``nvcc`` build and library,
-its schedule tables, cuBLAS's workspaces), then captures it on that stream,
-replaying each graph as soon as it is captured so that the next eager step
-reads computed inputs; its result is the replays'.  It therefore launches
-every kernel twice.  A capture that fails raises.
+its schedule tables, cuBLAS's and cuDNN's workspaces, the constants), then
+captures it on that stream, replaying each graph as soon as it is captured
+so that the next eager step reads computed inputs; its result is the
+replays'.  It therefore launches every kernel twice.  A capture that fails
+raises; nothing runs the eager body in its place.
 
-Like JAX's, the cache is unbounded; :func:`clear` is the counterpart of
-``jax.clear_caches()``.  One capture at a time, from one thread.
+Each entry keeps a memory pool at its call's peak.  An entry point's key
+(:func:`entry_key`) holds a module's tensors' addresses, and a capture at
+new addresses drops the entries of the same call at the old ones; beyond
+that, like JAX's, the cache is unbounded, and :func:`clear`, the
+counterpart of ``jax.clear_caches()``, releases every pool.  One capture
+at a time, from one thread.
 """
 
 import time
@@ -61,12 +77,14 @@ class Segments:
     """Runs a body split into segments at its :func:`eager` steps.
 
     On its own it only tracks the split: ``open`` is true while a segment
-    runs, and ``steps`` gets each eager step in order (the CPU tests hold a
-    body to it).  :class:`_Capture` makes each segment a CUDA graph."""
+    runs; ``steps`` gets each eager step in order, ``seeds`` the seed of
+    each nested body's generator, ``constants`` each :func:`constant` and
+    ``guards`` each :func:`guard` (the CPU tests hold a body to them).
+    :class:`_Capture` makes each segment a CUDA graph."""
 
     def __init__(self):
         self.open = False
-        self.steps = []
+        self.steps, self.seeds, self.constants, self.guards = [], [], [], []
 
     def begin(self):
         self.open = True
@@ -81,11 +99,27 @@ class Segments:
         self.begin()
         return out
 
+    def generator(self, device, seed):
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed)
+        self.seeds.append(seed)
+        return gen
+
+    def constant(self, make):
+        self.open = False
+        try:
+            value = make()
+        finally:
+            self.open = True
+        self.constants.append(value)
+        return value
+
     def __call__(self, fn, *args):
-        """``fn(*args)`` as one run of segments."""
+        """``fn(*args)`` as one run of segments; inside a running body,
+        inline, as part of it."""
         global _ACTIVE
         if _ACTIVE is not None:
-            raise RuntimeError("a captured body is already running")
+            return fn(*args)
         _ACTIVE = self
         try:
             self.begin()
@@ -97,12 +131,50 @@ class Segments:
         return out
 
 
+def _running():
+    """The Segments whose segment is running, if any (``None`` inside an
+    eager step too)."""
+    return _ACTIVE if _ACTIVE is not None and _ACTIVE.open else None
+
+
 def eager(fn, *args):
     """``fn(*args)``, run outside any graph: inside a capture it ends the
     current segment, and every replay runs it eagerly at this point."""
-    if _ACTIVE is None:
-        return fn(*args)
-    return _ACTIVE.step(fn, args)
+    active = _running()
+    return fn(*args) if active is None else active.step(fn, args)
+
+
+def generator(device, seed):
+    """A generator on ``device`` seeded with ``seed``; inside a body, the
+    one of this draw site, registered with the body's graphs and re-seeded
+    with ``seed`` before each replay."""
+    active = _running()
+    if active is None:
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed)
+        return gen
+    return active.generator(device, seed)
+
+
+def constant(make):
+    """``make()``: a tensor the body reads but cannot make inside a graph
+    (a host-to-device copy).  Inside a body it is made once, before the
+    capture, and every replay reads the same tensor; ``make`` must give
+    the same value for the same key."""
+    active = _running()
+    return make() if active is None else active.constant(make)
+
+
+def deferring():
+    """Whether a body is running: a guard inside it must not read the host
+    and hands its verdict to :func:`guard`."""
+    return _running() is not None
+
+
+def guard(bad):
+    """Hand a solve's guard verdict (a boolean device tensor) to the running
+    body: :func:`stage` reads it after the replay."""
+    _running().guards.append(bad)
 
 
 class Entry:
@@ -112,6 +184,7 @@ class Entry:
         self.device = device
         self.inputs = inputs
         self.gen = gen
+        self.gens, self.seeds, self.constants, self.guards = [], [], [], []
         self.pool = torch.cuda.graph_pool_handle()
         self.graphs, self.launches, self.steps = [], [], []
         self.outputs = None
@@ -121,34 +194,46 @@ class Entry:
         self.graphs[i].replay()
         jacobi_cuda.LAUNCHES += self.launches[i]
 
+    def _seed(self, seed):
+        self.gen.manual_seed(seed)
+        for gen, s in zip(self.gens, self.seeds):
+            gen.manual_seed(s)
+
     def replay(self, inputs, seed):
         """Every graph and step in order on the current stream, from
         ``inputs`` and ``seed``; returns the static outputs (not cloned)."""
         for static, value in zip(self.inputs, inputs):
             static.copy_(value)
-        self.gen.manual_seed(seed)
+        self._seed(seed)
         for i in range(len(self.graphs)):
             if i:
                 self.steps[i - 1].rerun()
             self._play(i)
         return self.outputs
 
+    def tripped(self):
+        """Whether a guard of the last replay tripped (one host read)."""
+        return bool(self.guards) and bool(torch.stack(self.guards).any())
+
 
 class _Capture(Segments):
     """Segments captured as CUDA graphs into ``entry``, each replayed as
-    soon as its capture ends."""
+    soon as its capture ends; the nested generators and the constants are
+    the entry's, made before the capture."""
 
     def __init__(self, entry):
         super().__init__()
         self.entry = entry
         self.steps = entry.steps
+        self.guards = entry.guards
         self.graph = None
         self.mark = 0
 
     def begin(self):
         super().begin()
         graph = torch.cuda.CUDAGraph()
-        graph.register_generator_state(self.entry.gen)
+        for gen in (self.entry.gen, *self.entry.gens):
+            graph.register_generator_state(gen)
         self.mark = jacobi_cuda.LAUNCHES
         graph.capture_begin(pool=self.entry.pool)
         self.graph = graph
@@ -163,6 +248,20 @@ class _Capture(Segments):
         self.entry.graphs.append(graph)
         self.entry.launches.append(captured)
         self.entry._play(len(self.entry.graphs) - 1)
+
+    def generator(self, device, seed):
+        i = len(self.seeds)
+        if i >= len(self.entry.seeds) or self.entry.seeds[i] != seed:
+            raise RuntimeError("the captured body draws other than its warm-up did")
+        self.seeds.append(seed)
+        return self.entry.gens[i]
+
+    def constant(self, make):
+        i = len(self.constants)
+        if i >= len(self.entry.constants):
+            raise RuntimeError("the captured body reads a constant its warm-up did not")
+        self.constants.append(self.entry.constants[i])
+        return self.entry.constants[i]
 
     def abort(self):
         """End a capture that a failure left open, discarding it."""
@@ -179,9 +278,15 @@ def _tensors(out):
             if isinstance(x, torch.Tensor)]
 
 
-def _clone(out):
-    if isinstance(out, (tuple, list)):
-        return tuple(_clone(x) for x in out)
+def clone(out):
+    """A copy of a nested result (tensors cloned; tuples, lists and dicts
+    rebuilt), for the caller to keep across replays."""
+    if isinstance(out, dict):
+        return {k: clone(v) for k, v in out.items()}
+    if isinstance(out, list):
+        return [clone(x) for x in out]
+    if isinstance(out, tuple):
+        return tuple(clone(x) for x in out)
     return out.clone() if isinstance(out, torch.Tensor) else out
 
 
@@ -197,9 +302,12 @@ def _capture(fn, inputs, seed):
         gen = torch.Generator(device=device)
         entry = Entry(device, tuple(x.clone() for x in inputs), gen)
         gen.manual_seed(seed)
-        fn(gen, *entry.inputs)  # the warm-up
+        warm = Segments()
+        warm(fn, gen, *entry.inputs)  # the warm-up
         torch.cuda.synchronize(device)
-        gen.manual_seed(seed)
+        entry.seeds, entry.constants = warm.seeds, warm.constants
+        entry.gens = [torch.Generator(device=device) for _ in warm.seeds]
+        entry._seed(seed)
         capture = _Capture(entry)
         try:
             entry.outputs = capture(fn, gen, *entry.inputs)
@@ -216,14 +324,167 @@ def run(key, fn, inputs, seed):
     the graphs cached under ``key``, or captured first; returns its
     outputs, cloned.  ``key`` must fix everything that shapes the work:
     the inputs' shapes, dtypes and device, and every argument ``fn`` closes
-    over."""
+    over.  Inside a running body ``fn`` runs inline, its generator from
+    :func:`generator`, and no entry opens."""
+    active = _running()
+    if active is not None:
+        return fn(active.generator(inputs[0].device, seed), *inputs)
     entry = _CACHE.get(key)
     if entry is None:
         entry = _CACHE[key] = _capture(fn, inputs, seed)
         out = entry.outputs
     else:
         out = entry.replay(inputs, seed)
-    return _clone(out)
+    return clone(out)
+
+
+def captured(X, mc_samples, solver, gram_side):
+    """The route rule of the entry points: whether a call is captured.
+
+    A call is captured when all of these hold:
+
+    * its tensors are on CUDA (``X``; the parameters were checked to lie
+      with it);
+    * its loss factors are exact (``mc_samples == 0``): Monte-Carlo draws
+      come from CPU generators (:func:`vivit_tpu_torch.losses.sample_generator`);
+    * every Gram solve stays on ``eigh_dc``'s chain path or does not run
+      it: ``solver`` other than ``"dc"`` (the vendor eigh, or LOBPCG as one
+      eager step), or ``gram_side()``, the side of the Gram it solves
+      (``(C−1)·S`` deflated, ``C·S`` not), below the strip threshold 1536.
+
+    Anything else runs eagerly, exactly as an uncaptured call does.  This
+    is a route, not a fallback: a captured call whose capture fails
+    raises.  :func:`stage` asks on each call of a key without an entry."""
+    if not X.is_cuda or mc_samples:
+        return False
+    if solver != "dc":
+        return True
+    from vivit_tpu_torch.eigdc import _STRIP_MIN
+
+    return gram_side() < _STRIP_MIN
+
+
+def gram_side(model_fn, params, X, subsampling, deflate):
+    """The side of the Gram a call solves, ``(C−1)·S`` with ``deflate``,
+    else ``C·S``: ``C`` from one forward of one sample, ``S`` the
+    ``subsampling`` count or the batch."""
+    with torch.no_grad():
+        c = model_fn(params, X[:1]).shape[-1]
+    return (c - bool(deflate)) * (X.shape[0] if subsampling is None else len(subsampling))
+
+
+class _Ref:
+    """An object in a key by identity.  The key holds it, so that its
+    ``id`` cannot pass to another object while the key lives."""
+
+    __slots__ = ("obj",)
+
+    def __init__(self, obj):
+        self.obj = obj
+
+    def __hash__(self):
+        return id(self.obj)
+
+    def __eq__(self, other):
+        return isinstance(other, _Ref) and other.obj is self.obj
+
+
+def _part(value):
+    """A setting as a hashable key part: sequences and dicts element by
+    element; a callable by its ``graph_key`` attribute where it has one
+    (:func:`~vivit_tpu_torch.optim.constant_damping` by its value), else by
+    identity."""
+    if isinstance(value, dict):
+        return tuple((k, _part(v)) for k, v in value.items())
+    if isinstance(value, (list, tuple, range)):
+        return tuple(_part(v) for v in value)
+    if callable(value) and not isinstance(value, type):
+        return getattr(value, "graph_key", None) or _Ref(value)
+    return value
+
+
+def _spec(t):
+    return tuple(t.shape), t.stride(), t.dtype, t.device
+
+
+def entry_key(name, model, params, X, y, loss, **settings):
+    """The cache key of one call of an entry point ``name``: ``(family,
+    addresses)``.
+
+    ``family`` holds the model by identity (:class:`_Ref`), each module's
+    type and mode, every parameter (a module's buffers too, a model
+    function's ``params``) by name with its shape, stride, dtype and device,
+    ``X``'s and ``y``'s, the loss's type and reduction (a custom loss's
+    function by identity), the cuDNN and TF32 flags and ``settings`` (see
+    :func:`_part`).  ``addresses`` are a module's tensors' ``data_ptr``s,
+    ``()`` for a model function.
+
+    A model function's ``params`` are static inputs, copied in before each
+    replay as ``X`` and ``y`` are (:func:`stage`): a new dict of the same
+    specs, as a functional update makes, replays.  A module's graphs read
+    its tensors in place: an in-place update (an optimizer step,
+    ``load_state_dict``) keeps the key, a replaced tensor changes the
+    addresses and captures anew, dropping the family's stale entry."""
+    from vivit_tpu_torch.engines import is_module
+
+    if is_module(model):
+        tensors = [*model.named_parameters(), *model.named_buffers()]
+        structure = tuple((type(m), m.training) for m in model.modules())
+        addresses = tuple(t.data_ptr() for _, t in tensors)
+    else:
+        tensors, structure, addresses = list(params.items()), (), ()
+    flags = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
+             torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    family = (name, _Ref(model), structure, tuple((n, *_spec(t)) for n, t in tensors),
+              _spec(X), _spec(y), type(loss), loss.reduction,
+              _part(getattr(loss, "_fn", None)), flags,
+              tuple((k, _part(v)) for k, v in sorted(settings.items())))
+    return family, addresses
+
+
+def stage(key, body, X, y, params, route):
+    """``body(X, y, params)``, one program of an entry point: ``(outputs,
+    replayed)``.  ``key`` comes from :func:`entry_key`; ``params`` is a
+    model function's dict or ``None`` (a module's tensors, read in place).
+
+    A key without an entry asks ``route()`` (:func:`captured`) on each call.
+    Uncaptured, the body runs eagerly on the caller's tensors.  Captured,
+    the first call captures it (:func:`run`'s warm-up and capture; ``X``,
+    ``y`` and ``params``' tensors are its static inputs, copied in before
+    every replay), dropping the entries of the key's family at other
+    addresses, and later calls replay it; ``outputs`` are then the entry's
+    static outputs, which the next replay overwrites.  After the replay the
+    guards its solves handed to :func:`guard` are read at once; if one
+    tripped, the body runs again eagerly, where the tripped solve warns and
+    takes the vendor's result (its downstream work consumed the solve
+    inside the graphs).  Inside a running body, inline."""
+    if _ACTIVE is not None:
+        return body(X, y, params), False
+    names = () if params is None else tuple(params)
+
+    def flat(_gen, X, y, *values):
+        return body(X, y, None if params is None else dict(zip(names, values)))
+
+    inputs = (X, y, *(params[n].detach() for n in names))
+    entry = _CACHE.get(key)
+    if entry is None:
+        if not route():
+            return body(X, y, params), False
+        for stale in [k for k in _CACHE if k[0] == key[0]]:
+            del _CACHE[stale]
+        entry = _CACHE[key] = _capture(flat, inputs, 0)
+        out = entry.outputs
+    else:
+        out = entry.replay(inputs, 0)
+    if entry.tripped():
+        return body(X, y, params), False
+    return out, True
+
+
+def entry(key, body, X, y, params, route):
+    """:func:`stage`'s outputs, cloned where they came from the graphs."""
+    out, replayed = stage(key, body, X, y, params, route)
+    return clone(out) if replayed else out
 
 
 def entries():
@@ -232,7 +493,7 @@ def entries():
 
 
 def clear():
-    """Drop every entry and release its memory pool."""
+    """Drop every entry and its memory pool."""
     devices = {entry.device for entry in _CACHE.values()}
     for device in devices:
         torch.cuda.synchronize(device)
