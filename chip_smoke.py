@@ -5,8 +5,10 @@
 
 Phases, each printed as it runs:
 
-1. **Card**: ``nvidia-smi`` name and power limit, then the build of the
-   Jacobi kernel from ``vivit_tpu_torch/csrc/jacobi.cu`` (``nvcc``, sm_90a).
+1. **Card**: ``nvidia-smi`` name and power limit, then the builds of the
+   window kernel ``vivit_tpu_torch/csrc/jacobi.cu`` and the leaf kernel
+   ``vivit_tpu_torch/csrc/jacobi_leaf.cu`` (``nvcc``, sm_90a, one process
+   each, started together).
 2. **Kernel against its plain version** on the card at the window shapes of
    the eigensolver, plus two degenerate inputs; the sweeps the kernel ran
    (its exact early exit) against those of the plain version under the same
@@ -17,7 +19,11 @@ Phases, each printed as it runs:
    ``torch.linalg.eigh`` at ``b in {1, 8, 37, 64, 73, 132, 146, 292, 438}``
    x ``m in {32, 48, 64}`` (up to four waves of one CTA per SM at m=64),
    each shape first held to its plain version and float64 (CUDA events,
-   median and spread of 5).
+   median and spread of 5).  Then the **leaf kernel's sweep**
+   (:data:`LEAF_SWEEP`, b in {1, 16, 132} x m in {40, 95, 96, 128, 150,
+   160}): each shape bit-equal to its plain version with equal sweeps,
+   within float64's bars, timed beside the plain version,
+   ``torch.linalg.eigh`` and its bound (:func:`leaf_row`).
 3. **Main path**: ``eigvalsh_structured`` on full-width CIFAR-10 3c3d at
    N=128 with the headline settings (bf16 Gram, CE deflation, dc
    eigensolver).  Weights: ``cnn3c3d_flax_params(seed=0)`` (numpy) through
@@ -26,7 +32,10 @@ Phases, each printed as it runs:
    Gram's dc eigenvalues and the entry's returned spectrum against float64;
    runs the two window batches of that solve again through the kernel and
    its plain version (equal sweeps) and times them beside
-   ``torch.linalg.eigh``; times the step and its three stages.
+   ``torch.linalg.eigh``; the same for its leaf and edge batches through
+   the leaf kernel (2 launches, :func:`time_leaves`); times the step and
+   its three stages.  Phases 4-6 read their leaf batches the same way
+   (N=128 eigenpairs: 1 launch; N=512: the strip path's edge blocks).
 4. **N=128 eigenpairs**: ``eigh_topk(k=10, solver="dc")`` with the same
    settings (the bf16 Gram, deflated at the Gram level to 1152², the dc
    solver's chain path in eigenvector mode): 6 Jacobi launches, the guard,
@@ -121,7 +130,9 @@ Phases, each printed as it runs:
     call per key (``vivit_tpu_torch.utils.graphs``), so every gate above
     reads replays, their Jacobi launches counted by the replay.  For the
     headline's and ``eigh_topk``'s N=128 solves: the capture (time, graphs,
-    vendor steps and their shapes), the replay bit-equal to the eager body
+    vendor steps and their shapes: none and one graph in eigenvalues mode,
+    only blocks above m=160 in eigenvector mode; the leaf kernel's 2 and 1
+    launches, the trace's count equal), the replay bit-equal to the eager body
     with the same key, launches outside graphs beside the vendor steps' own
     (at most :data:`OUTSIDE_BAR` more) and the eager body's, the Jacobi
     kernel's executions in the trace equal to the counter, busy shares; the
@@ -147,8 +158,10 @@ Phases, each printed as it runs:
     params are copied in: the same key; a module's are read in place: a
     new key, the stale one dropped), launches outside graphs beyond the
     eager steps' own and a class's eager rest after its program (at most
-    :data:`OUTSIDE_BAR`), the Jacobi kernel's executions in the trace equal
-    to the counter, busy shares, the replay against solve-only graphs (the
+    :data:`OUTSIDE_BAR`), no eager step in an eigenvalues-mode call and
+    only vendor blocks above m=160 in the others, both kernels' executions
+    in the trace equal to their counters (:data:`EIGVALS`,
+    :data:`EIGPAIRS`), busy shares, the replay against solve-only graphs (the
     body eager, its chain solve replayed) and against no graphs in turns,
     and a guard trip under replay, forced by a zero threshold (one warning,
     the eager call's result).  Each key's pool is printed and released
@@ -156,9 +169,10 @@ Phases, each printed as it runs:
     replay of phases 3-15 (:func:`recording_eigh`, which runs the eager
     body once more for what the phases record) is held against its eager
     body: bit-equal, or within :data:`ENTRY_BAR` of it.
-17. The call times of the new entries, the launches of each path, a JSON
-    line of the kernels, the command time, then ``{"ok": true, "device":
-    ...}`` last.
+17. The call times of the new entries, the launches of each path (the
+    leaf kernel's too), a JSON line of the kernels (the leaf kernel's rows
+    by path, :data:`LEAF_ROWS`), the command time, then ``{"ok": true,
+    "device": ...}`` last.
 
 Any failed check exits non-zero.  Without a CUDA device it exits 2 and
 prints no result.
@@ -169,12 +183,15 @@ import subprocess
 import sys
 import time
 import warnings
+from concurrent.futures import ThreadPoolExecutor
 from contextlib import contextmanager
 
 import numpy as np
 
 N = 128
 NUM_CLASSES = 10
+# the kernels' sources under vivit_tpu_torch/csrc/, built at the start
+KERNEL_SOURCES = ("jacobi", "jacobi_leaf")
 KERNEL_SHAPES = [(37, 32), (36, 32), (13, 32), (16, 48), (32, 64)]
 HEADLINE_SHAPES = [(37, 32), (36, 32)]  # the window solves of one n=1152 solve
 SWEEP_SHAPES = [(b, m) for m in (32, 48, 64)
@@ -401,16 +418,14 @@ def phase_main_path(jc):
         return vtt.eigvalsh_structured(model, loss, X, y, return_eig_info=True, **kw)
 
     step()  # warm-up
-    torch.cuda.synchronize()
-    jc.LAUNCHES = 0
-    (evals,), (info,) = step()
-    torch.cuda.synchronize()
-    launches = jc.LAUNCHES
+    ((evals,), (info,)), (launches, leaf_launches) = counts_of(step)
     print(f"main path: 3c3d ({n_params} parameters) N={N}, "
-          f"{evals.numel()} eigenvalues, Jacobi launches {launches}, "
-          f"guard tripped {bool(info['tripped'])} (bound "
+          f"{evals.numel()} eigenvalues, Jacobi launches {launches}, leaf-kernel "
+          f"launches {leaf_launches}, guard tripped {bool(info['tripped'])} (bound "
           f"{float(info['bound']):.2e}, orth {float(info['orth']):.2e})", flush=True)
     check(launches == 2, f"expected 2 Jacobi launches per solve, got {launches}")
+    check(leaf_launches == 2, f"expected 2 leaf-kernel launches per solve (the leaves "
+          f"and the bottom block), got {leaf_launches}")
     check(not bool(info["tripped"]), "the eigdc guard tripped: dc path not exercised")
     check(evals.numel() == N * NUM_CLASSES, f"{evals.numel()} eigenvalues")
     check(bool(torch.isfinite(evals).all()), "non-finite eigenvalues")
@@ -422,8 +437,8 @@ def phase_main_path(jc):
     with full_f32():
         vt = tapped_ggn_sqrt_vt(model, loss, X, y, deflate_ce_null=True)
         gram = gram_matrix_mixed(vt, generic_precision=_PRECISIONS["bf16"])
-        ev_dc, windows = recording_eigh(lambda: eigdc.eigvalsh_dc(gram))
-    windows = [A for A in windows if jacobi_supported(A.shape, A.dtype)]
+        ev_dc, batches = recording_eigh(lambda: eigdc.eigvalsh_dc(gram))
+    windows = [A for A in batches if jacobi_supported(A.shape, A.dtype)]
     ref = torch.linalg.eigvalsh(gram.double())
     err = (ev_dc.double() - ref).abs()
     tol = ATOL * ref.abs().max() + RTOL * ref.abs()
@@ -432,6 +447,7 @@ def phase_main_path(jc):
           f"{int((err > tol).sum())} violations", flush=True)
     check(ratio <= 1.0, f"dc eigenvalues off float64 (max err/tol {ratio:.2f})")
     check(len(windows) == 2, f"{len(windows)} window batches, expected 2")
+    time_leaves(batches, f"eigvalsh_structured N={N}", leaf_launches)
     for A in windows:
         b, m, _ = A.shape
         ev, V, sw = jc.batched_eigh_jacobi_cuda(A, return_sweeps=True)
@@ -520,7 +536,8 @@ def profile_step(step, top=12, syncs=False):
           f"{sum(e.count for e in kernels)} kernel launches, device busy "
           f"{busy:.3f} ms = {busy / wall:.1%} of the step", flush=True)
     ranked = sorted(kernels, key=lambda e: -e.self_device_time_total)
-    shown = ranked[:top] + [e for e in ranked[top:] if "jacobi_kernel" in e.key]
+    shown = ranked[:top] + [e for e in ranked[top:]
+                            if "jacobi_kernel" in e.key or "leaf_eigh_kernel" in e.key]
     for e in shown:
         print(f"  device {e.self_device_time_total / 1e3:9.3f} ms {e.count:6d}x  "
               f"{e.key[:100]}", flush=True)
@@ -587,26 +604,116 @@ def port_batch(n, seed=0):
     return torch.tensor(X, device="cuda"), torch.tensor(y, device="cuda")
 
 
-def untripped(fn, label):
+def untripped(fn, label, keep=False):
     """``fn()``, failing if an eigdc guard tripped inside it (the guard's
-    warning is its only trace in an entry point's result)."""
-    with warnings.catch_warnings(record=True) as caught:
+    warning is its only trace in an entry point's result).  With ``keep``
+    each tripped Gram is kept and solved again (:func:`replay_trips`)
+    before the check fails."""
+    kept = []
+    with warnings.catch_warnings(record=True) as caught, keeping_trips(kept, keep):
         warnings.simplefilter("always")
         out = fn()
     trips = [str(w.message) for w in caught if "guard tripped" in str(w.message)]
+    if kept:
+        replay_trips(kept, label)
     check(not trips, f"{label}: {trips}")
     return out
 
 
-def launches_of(jc, fn):
-    """``(fn(), Jacobi launches during it)``, the count set to 0 just before."""
+# the run's outputs too large for its log (a folder git ignores)
+OUT_DIR = "chiprun_out"
+
+
+@contextmanager
+def keeping_trips(kept, on=True):
+    """Inside the block (if ``on``), every ``eigh_dc`` call that trips its
+    guard outside a captured body appends ``(H, its keywords)`` to
+    ``kept``."""
+    from vivit_tpu_torch import eigdc
+    from vivit_tpu_torch.utils import graphs
+
+    solve = eigdc.eigh_dc
+
+    def read(H, **kw):
+        out = solve(H, **{**kw, "return_info": True})
+        if not graphs.deferring() and bool(out[2]["tripped"]):
+            kept.append((H.detach().clone(), {k: v for k, v in kw.items() if k != "return_info"}))
+        return out if kw.get("return_info") else out[:2]
+
+    if on:
+        eigdc.eigh_dc = read
+    try:
+        yield
+    finally:
+        eigdc.eigh_dc = solve
+
+
+def replay_trips(kept, label):
+    """Each tripped Gram of ``kept`` saved under :data:`OUT_DIR`, then
+    solved again with its keywords, uncounted: under the port's rule with
+    the leaf kernel's cap of 12 sweeps and of 30, and under the parent's
+    rule (the leaf range on the vendor); each solve's guard reading is
+    printed, so that a trip shows whether it follows the leaf kernel or
+    the Gram."""
+    import os
+
     import torch
 
+    from vivit_tpu_torch import eigdc
+    from vivit_tpu_torch.kernels import jacobi
+    from vivit_tpu_torch.kernels import jacobi_leaf_cuda as jl
+    from vivit_tpu_torch.utils import graphs
+
+    rule, leaf = jacobi.route, jacobi.batched_eigh_leaf
+
+    def parent(shape, dtype, device, eager=False):
+        way = rule(shape, dtype, device, eager)
+        return "vendor" if way == "leaf" else way
+
+    setups = {"leaf kernel, 12 sweeps": (rule, leaf),
+              "leaf kernel, 30 sweeps": (rule, lambda A: jl.batched_eigh_leaf_cuda(A, sweeps=30)),
+              "the parent's rule": (parent, leaf)}
+    os.makedirs(OUT_DIR, exist_ok=True)
+    for i, (H, kw) in enumerate(kept):
+        path = os.path.join(OUT_DIR, f"guard_trip_{i}.pt")
+        torch.save({"H": H.cpu(), "keywords": kw, "label": label}, path)
+        readings = []
+        for name, (r, solve_leaf) in setups.items():
+            graphs.clear()  # a replay keeps the rule it was captured with
+            jacobi.route, jacobi.batched_eigh_leaf = r, solve_leaf
+            try:
+                with uncounted(), warnings.catch_warnings():
+                    warnings.simplefilter("ignore")
+                    info = eigdc.eigh_dc(H, **{**kw, "return_info": True})[2]
+                readings.append(f"{name}: bound {float(info['bound']):.2e}, orth "
+                                f"{float(info['orth']):.2e}, tripped {bool(info['tripped'])}")
+            finally:
+                jacobi.route, jacobi.batched_eigh_leaf = rule, leaf
+        graphs.clear()
+        print(f"{label}: guard trip {i}, Gram {tuple(H.shape)} with {kw}, kept in {path}; "
+              "solved again: " + "; ".join(readings), flush=True)
+
+
+def launches_of(jc, fn):
+    """``(fn(), window-kernel launches during it)``, the counts set to 0
+    just before (:func:`counts_of`)."""
+    out, (window, _) = counts_of(fn)
+    return out, window
+
+
+def counts_of(fn):
+    """``(fn(), (window-kernel launches, leaf-kernel launches))`` during
+    ``fn``, both counts set to 0 just before."""
+    import torch
+
+    from vivit_tpu_torch.kernels import jacobi_cuda as jc
+    from vivit_tpu_torch.kernels import jacobi_leaf_cuda as jl
+
     torch.cuda.synchronize()
-    jc.LAUNCHES = 0
+    jc.LAUNCHES = jl.LAUNCHES = 0
     out = fn()
     torch.cuda.synchronize()
-    return out, jc.LAUNCHES
+    return out, (jc.LAUNCHES, jl.LAUNCHES)
 
 
 # every chain-path solve recorded by recording_eigh: (n, mode, bit-equal,
@@ -639,14 +746,15 @@ def eager_entries():
 
 @contextmanager
 def uncounted():
-    """Inside the block, Jacobi launches are not counted."""
+    """Inside the block, neither kernel's launches are counted."""
     from vivit_tpu_torch.kernels import jacobi_cuda as jc
+    from vivit_tpu_torch.kernels import jacobi_leaf_cuda as jl
 
-    launches = jc.LAUNCHES
+    launches = jc.LAUNCHES, jl.LAUNCHES
     try:
         yield
     finally:
-        jc.LAUNCHES = launches
+        jc.LAUNCHES, jl.LAUNCHES = launches
 
 
 def recording_eigh(fn):
@@ -868,18 +976,21 @@ def phase_eigenpairs(jc, model, n, expect_launches):
         return vtt.eigh_topk(model, loss, X, y, TOP_K, solver="dc", **HEADLINE)
 
     untripped(entry, label)  # warm-up
-    (evals, leaves), launches = launches_of(jc, lambda: untripped(entry, label))
+    (evals, leaves), (launches, leaf_launches) = counts_of(lambda: untripped(entry, label))
     vt, w, gram_d = deflated_gram(model, loss, X, y)
     with full_f32():
         (ev_d, V_d, info), batches = recording_eigh(
             lambda: eigdc.eigh_dc(gram_d, return_info=True))
     torch.cuda.synchronize()
+    time_leaves(batches, label, leaf_launches, eager=gram_d.shape[0] >= eigdc._STRIP_MIN)
     print(f"{label}: deflated Gram {tuple(gram_d.shape)}, Jacobi launches {launches}, "
           f"guard tripped {bool(info['tripped'])} (bound {float(info['bound']):.2e}, "
           f"orth {float(info['orth']):.2e}), top-{TOP_K} "
           f"{[round(v, 6) for v in evals.tolist()]}", flush=True)
     check(launches == expect_launches,
           f"{label}: expected {expect_launches} Jacobi launches, got {launches}")
+    if n == N:  # the chain path's leaves [14,150,150]; the tail and bottom block are larger
+        check(leaf_launches == 1, f"{label}: expected 1 leaf-kernel launch, got {leaf_launches}")
     check(not bool(info["tripped"]), f"{label}: the eigdc guard tripped")
     check(evals.shape == (TOP_K,) and bool(torch.isfinite(evals).all()),
           f"{label}: eigenvalues {evals}")
@@ -934,6 +1045,184 @@ def time_windows(jc, batches, label, timed=True, reps=30, calls=10):
     return totals
 
 
+# the leaf kernel's shape sweep: one matrix, one per SM at b=16 and 132;
+# m odd (95, padded), between the window sizes, the leaves' 150, the edge 160
+LEAF_SWEEP = [(b, m) for m in (40, 95, 96, 128, 150, 160) for b in (1, 16, 132)]
+# the leaf kernel's rows of the kernels line, by path (:func:`time_leaves`)
+LEAF_ROWS = {}
+
+
+def check_leaf(A, ev, V, label):
+    """BASELINE's bars against float64, per matrix: eigenvalues within
+    ``ATOL·λmax + RTOL·|λ|``, ``‖Av − λv‖ ≤ RES_RTOL·λmax`` for every vector,
+    ``max|VᵀV − I| ≤ RES_RTOL``; returns the three readings (eigenvalue
+    err/tol, residual/λmax, orthonormality)."""
+    import torch
+
+    A64, V64, ev64 = A.double(), V.double(), ev.double()
+    ref = torch.linalg.eigvalsh(A64)
+    lmax = ref.abs().amax(dim=-1, keepdim=True).clamp(min=1e-30)
+    err = (ev64 - ref).abs()
+    ratio = (err / (ATOL * lmax + RTOL * ref.abs())).max().item()
+    res = (torch.linalg.vector_norm(A64 @ V64 - V64 * ev64[:, None, :], dim=1)
+           / lmax).max().item()
+    eye = torch.eye(A.shape[-1], dtype=torch.float64, device=A.device)
+    orth = (V64.transpose(-1, -2) @ V64 - eye).abs().max().item()
+    check(ratio <= 1.0, f"{label}: eigenvalues off float64 ({ratio:.2f} of the bar)")
+    check(res <= RES_RTOL, f"{label}: residual {res:.2e} of λmax")
+    check(orth <= RES_RTOL, f"{label}: orthonormality {orth:.2e}")
+    return ratio, res, orth
+
+
+def leaf_row(A, label, reps=5):
+    """The leaf kernel on ``A``, uncounted: bit-equal to its plain version
+    with equal sweeps, within float64's bars (:func:`check_leaf`), timed
+    (CUDA events around one call, median of ``reps``) beside its plain
+    version (one call), ``torch.linalg.eigh`` and its bound (the
+    rotation flops of the sweeps run, at the padded m, over the f32 peak);
+    prints a line and returns the fields of a ``kernels`` row."""
+    import torch
+
+    from vivit_tpu_torch.kernels import jacobi_cuda as jc
+    from vivit_tpu_torch.kernels import jacobi_leaf_cuda as jl
+
+    b, m = A.shape[0], A.shape[-1]
+    with uncounted():
+        ev, V, sw = jl.batched_eigh_leaf_cuda(A, return_sweeps=True)
+        (ev_p, V_p, sw_p), t_p = cuda_once(lambda: jl.batched_eigh_leaf_plain(
+            A, exit_early=True, return_sweeps=True))
+        check(torch.equal(sw, sw_p), f"{label}: the kernel ran {sw.tolist()} sweeps, "
+              f"the plain version {sw_p.tolist()}")
+        gap = max((ev - ev_p).abs().max().item(), (V - V_p).abs().max().item())
+        check(torch.equal(ev, ev_p) and torch.equal(V, V_p),
+              f"{label}: kernel and plain version differ by {gap:.2e}")
+        ratio, res, orth = check_leaf(A, ev, V, label)
+        t_k = cuda_times(lambda: jl.batched_eigh_leaf_cuda(A), reps=reps)
+        t_l = cuda_times(lambda: torch.linalg.eigh(A), reps=reps)
+    bound, by = jc.bound_ms(b, m + m % 2, int(sw.sum()), PEAK_F32_FLOPS, PEAK_BYTES)
+    print(f"{label}: sweeps run {int(sw.min())}-{int(sw.max())} (plain the same), "
+          f"bit-equal to the plain version; float64: eigenvalues {ratio:.3f} of the bar, "
+          f"residual {res:.2e}, orthonormality {orth:.2e}; kernel {spread(t_k)}, "
+          f"torch.linalg.eigh {spread(t_l)} (CUDA events, median [min-max] of {reps}), "
+          f"kernel/eigh "
+          f"{np.median(t_k) / np.median(t_l):.3f}, plain {t_p:.3f} ms, bound {bound:.6f} ms "
+          f"({by}, {int(sw.sum())} matrix-sweeps)", flush=True)
+    return dict(max_abs_err=gap, sweeps=int(sw.max()), ms=float(np.median(t_k)),
+                plain_ms=t_p, bound_ms=bound, bound_by=by,
+                library_ms=float(np.median(t_l)))
+
+
+def phase_leaf_sweep():
+    """The leaf kernel over :data:`LEAF_SWEEP`, random symmetric inputs, each
+    shape through :func:`leaf_row`."""
+    import torch
+
+    for b, m in LEAF_SWEEP:
+        A = torch.tensor(random_sym(b, m, seed=b * 1000 + m), device="cuda")
+        leaf_row(A, f"leaf sweep [{b},{m},{m}]")
+
+
+# eigh_dc's direct solve (n ≤ 160): (window, leaf) kernel launches by n; a
+# window size stays the vendor's, as the JAX package's direct solve
+DIRECT_SOLVES = {64: (0, 0), 96: (0, 1), 160: (0, 1)}
+
+
+def phase_direct_solves():
+    """``eigh_dc``'s direct solve at each n of :data:`DIRECT_SOLVES`, both
+    modes, on a Gram-like matrix (numpy, seeded): the kernels' launches,
+    float64's bars (:func:`check_leaf`), the leaf route bit-equal to the
+    kernel on ``H[None]``; then captured whole (``graphs.run``): no eager
+    step on the leaf route (the vendor's one at a window size), the replay
+    bit-equal to the eager call with the same launches."""
+    import torch
+
+    from vivit_tpu_torch import eigdc
+    from vivit_tpu_torch.kernels import jacobi_leaf_cuda as jl
+    from vivit_tpu_torch.utils import graphs
+
+    for n, expect in DIRECT_SOLVES.items():
+        rng = np.random.default_rng(n)
+        Q, _ = np.linalg.qr(rng.standard_normal((n, n)))
+        lam = np.exp(-np.linspace(0, 11, n)) * 250.0 + 1e-7
+        H = torch.tensor(((Q * lam) @ Q.T).astype(np.float32), device="cuda")
+        Hs = (0.5 * (H + H.T))[None]
+        for vectors in (False, True):
+            label = f"eigh_dc direct solve {n}² ({'eigenpairs' if vectors else 'eigenvalues'})"
+
+            def body(gen, H):
+                return eigdc.eigh_dc(H, eigenvectors=vectors)
+
+            (ev, V), counts = counts_of(lambda: body(None, H))
+            check(counts == expect, f"{label}: (window, leaf) launches {counts}, "
+                  f"expected {expect}")
+            if vectors:
+                ratio, res, orth = check_leaf(Hs, ev[None], V[None], label)
+                bars = (f"eigenvalues {ratio:.3f} of the bar, residual {res:.2e}, "
+                        f"orthonormality {orth:.2e}")
+            else:
+                ref = torch.linalg.eigvalsh(Hs[0].double())
+                ratio = ((ev.double() - ref).abs()
+                         / (ATOL * ref.abs().max() + RTOL * ref.abs())).max().item()
+                check(ratio <= 1.0, f"{label}: eigenvalues off float64 ({ratio:.2f} of the bar)")
+                bars = f"eigenvalues {ratio:.3f} of the bar"
+            if expect[1]:
+                with uncounted():
+                    want = [x[0] for x in jl.batched_eigh_leaf_cuda(Hs)]
+                check(torch.equal(ev, want[0]) and (V is None or torch.equal(V, want[1])),
+                      f"{label}: not the leaf kernel's result on H[None]")
+            key = ("chip_smoke direct solve", n, vectors)
+            with uncounted():
+                graphs.run(key, body, (H,), 0)  # the capture
+            steps = [list(st.args[0].shape) for st in graphs.entries()[key].steps]
+            (ev_r, V_r), replayed = counts_of(lambda: graphs.run(key, body, (H,), 0))
+            check(len(steps) == (0 if expect[1] else 1),
+                  f"{label}: captured with eager steps {steps}")
+            check(replayed == expect, f"{label}: the replay launched {replayed}")
+            check(torch.equal(ev_r, ev) and (V is None or torch.equal(V_r, V)),
+                  f"{label}: the replay differs from the eager call")
+            print(f"{label}: (window, leaf) launches {counts}, float64: {bars}"
+                  f"{', bit-equal to the leaf kernel on H[None]' if expect[1] else ''}; "
+                  f"captured with eager steps {steps}, the replay bit-equal with the same "
+                  "launches", flush=True)
+
+
+def time_leaves(batches, label, launches, eager=False):
+    """The leaf kernel on the leaf and edge blocks of a solve (the batches
+    ``batched_eigh`` routes to it; ``eager``: a strip-path solve, which
+    routes them as solved outside any graph), each through
+    :func:`leaf_row`; the path's launches, read from its own run, must be
+    their number.  Keeps the sums as the path's row of the ``kernels``
+    line (:data:`LEAF_ROWS`).  The single blocks of the leaf range that
+    the path sends to the vendor go through :func:`leaf_row` too, for the
+    record."""
+    from vivit_tpu_torch.kernels.jacobi import leaf_supported, route
+
+    leaves = [A for A in batches if route(A.shape, A.dtype, A.device, eager) == "leaf"]
+    shapes = [list(A.shape) for A in leaves]
+    check(launches == len(leaves), f"{label}: {launches} leaf-kernel launches, but the "
+          f"solve hands the leaf route {len(leaves)} batches {shapes}")
+    for A in batches:
+        if route(A.shape, A.dtype, A.device, eager) == "vendor" and leaf_supported(
+                A.shape, A.dtype):
+            leaf_row(A, f"{label} vendor batch {list(A.shape)} (single, outside graphs)")
+    if not leaves:
+        print(f"{label}: no batch on the leaf route", flush=True)
+        return
+    totals = dict(launches=launches, batches=shapes, max_abs_err=0.0, sweeps=0, ms=0.0,
+                  plain_ms=0.0, bound_ms=0.0, bound_by=None, library_ms=0.0)
+    for A, shape in zip(leaves, shapes):
+        row = leaf_row(A, f"{label} leaf batch {shape}")
+        for key in ("ms", "plain_ms", "bound_ms", "library_ms"):
+            totals[key] += row[key]
+        totals["max_abs_err"] = max(totals["max_abs_err"], row["max_abs_err"])
+        totals["sweeps"] = max(totals["sweeps"], row["sweeps"])
+        totals["bound_by"] = row["bound_by"]
+    print(f"{label}, its {launches} leaf-kernel launches {shapes}: kernel "
+          f"{totals['ms']:.4f} ms, torch.linalg.eigh {totals['library_ms']:.4f} ms, bound "
+          f"{totals['bound_ms']:.6f} ms, plain {totals['plain_ms']:.3f} ms", flush=True)
+    LEAF_ROWS[label] = totals
+
+
 def phase_refine(jc, gram_d, V_d):
     """``refine_eigh`` on the N=128 deflated Gram, warm-started from the dc
     basis; returns its launches."""
@@ -980,7 +1269,7 @@ def phase_spectrum_large(jc, model, expect_launches):
                                        return_eig_info=True, **HEADLINE)
 
     entry()  # warm-up
-    ((evals,), (info,)), launches = launches_of(jc, entry)
+    ((evals,), (info,)), (launches, leaf_launches) = counts_of(entry)
     n_zero = int((evals == 0).sum())
     print(f"{label}: {evals.numel()} eigenvalues, {n_zero} exact zeros, Jacobi launches "
           f"{launches}, guard tripped {bool(info['tripped'])} (bound "
@@ -1010,6 +1299,7 @@ def phase_spectrum_large(jc, model, expect_launches):
               "violations", flush=True)
         check(bad == 0, f"{name}: {bad} violations of float64")
     check(not bool(info_dc["tripped"]), f"deflated Gram {tuple(gram.shape)}: guard tripped")
+    time_leaves(batches, label, leaf_launches, eager=True)
     # eigh's ~30 ms per window batch: one call per run, median of 5
     return launches, (X, y, loss), time_windows(jc, batches, label, reps=5, calls=1)
 
@@ -2227,7 +2517,7 @@ def data_parallel_gates(jc):
     def three_steps():
         p, out = params, [batch_loss(params)]
         for _ in range(3):
-            p, _ = untripped(lambda: step(p, X, y), label)
+            p, _ = untripped(lambda: step(p, X, y), label, keep=True)
             out.append(batch_loss(p))
         return out
 
@@ -2396,7 +2686,8 @@ OUTSIDE_BAR = 100
 def launch_profile(fn):
     """``fn`` once under ``torch.profiler``: ``{"wall", "busy"}`` in ms (host
     clock, device time summed over kernels, copies and fills), ``"device"``
-    (their count), ``"jacobi"`` (the Jacobi kernel's executions),
+    (their count), ``"jacobi"`` and ``"leaf"`` (the window and the leaf
+    kernel's executions),
     ``"outside"`` (runtime launch calls outside any graph, :data:`LAUNCH_APIS`)
     and ``"graphs"`` (``cudaGraphLaunch`` calls)."""
     import torch
@@ -2415,6 +2706,7 @@ def launch_profile(fn):
     return {"wall": wall, "busy": sum(e.self_device_time_total for e in device) / 1e3,
             "device": sum(e.count for e in device),
             "jacobi": sum(e.count for e in device if "jacobi_kernel" in e.key),
+            "leaf": sum(e.count for e in device if "leaf_eigh_kernel" in e.key),
             "outside": sum(host.get(name, 0) for name in LAUNCH_APIS),
             "graphs": host.get("cudaGraphLaunch", 0)}
 
@@ -2481,6 +2773,7 @@ def phase_graphs(jc):
 
     import vivit_tpu_torch as vtt
     from vivit_tpu_torch import eigdc
+    from vivit_tpu_torch.kernels.jacobi_leaf_cuda import LEAF_MAX_M
     from vivit_tpu_torch.precision import _PRECISIONS, full_f32
     from vivit_tpu_torch.structured import gram_matrix_mixed
     from vivit_tpu_torch.tapped import tapped_ggn_sqrt_vt
@@ -2494,8 +2787,11 @@ def phase_graphs(jc):
                                      generic_precision=_PRECISIONS["bf16"])
     deflated = deflated_gram(model, loss, X, y)[2]
     release_graphs("phase 15")
-    for name, G, vectors, expect in (("headline solve", headline, False, 2),
-                                     ("eigenpair solve", deflated, True, 6)):
+    # (window, leaf) kernel launches: eigenvalues mode's leaves [16,150,150]
+    # and bottom block [1,96,96]; eigenvector mode's leaves [14,150,150]
+    for name, G, vectors, expect, expect_leaf in (
+            ("headline solve", headline, False, 2, 2),
+            ("eigenpair solve", deflated, True, 6, 1)):
         label = f"graphs: {name} {G.shape[0]}² ({'eigenpairs' if vectors else 'eigenvalues'})"
 
         def solve():
@@ -2507,13 +2803,21 @@ def phase_graphs(jc):
         (entry,) = [e for k, e in graphs.entries().items() if k not in before]
         steps = [f"{list(st.args[0].shape)}" for st in entry.steps]
         print(f"{label}: first call {t_first:.3f} ms (capture {entry.capture_s * 1e3:.3f} ms "
-              f"host clock, warm-up included): {len(entry.graphs)} graphs, Jacobi launches "
-              f"captured per graph {entry.launches}, {len(steps)} vendor steps between "
-              f"them {steps}", flush=True)
+              f"host clock, warm-up included): {len(entry.graphs)} graphs, (window, leaf) "
+              f"kernel launches captured per graph {entry.launches}, {len(steps)} vendor "
+              f"steps between them {steps}", flush=True)
         check(all(st.fn is torch.linalg.eigh for st in entry.steps),
               f"{label}: a step other than the vendor eigh")
-        (out, count) = launches_of(jc, solve)
+        check(all(st.args[0].shape[-1] > LEAF_MAX_M for st in entry.steps),
+              f"{label}: a vendor step at m <= {LEAF_MAX_M}: {steps}")
+        if not vectors:
+            check(not entry.steps and len(entry.graphs) == 1,
+                  f"{label}: {len(steps)} eager steps and {len(entry.graphs)} graphs, "
+                  "expected none and one")
+        out, (count, leaf) = counts_of(solve)
         check(count == expect, f"{label}: {count} Jacobi launches under replay, expected {expect}")
+        check(leaf == expect_leaf,
+              f"{label}: {leaf} leaf-kernel launches under replay, expected {expect_leaf}")
         check(not bool(out[2]["tripped"]), f"{label}: the guard tripped")
         with eager_body():
             ref = solve()
@@ -2540,13 +2844,16 @@ def phase_graphs(jc):
               f"graphs {replay['outside']} (the vendor steps' own {vendor['outside']}, the rest "
               f"{extra}, bar {OUTSIDE_BAR}), graph launches {replay['graphs']}, device operations "
               f"{replay['device']}, Jacobi kernel executions {replay['jacobi']} (counter "
-              f"{count}); eager body {eager['wall']:.3f} ms, busy {eager['busy']:.3f} ms = "
+              f"{count}), leaf kernel executions {replay['leaf']} (counter {leaf}); eager "
+              f"body {eager['wall']:.3f} ms, busy {eager['busy']:.3f} ms = "
               f"{eager['busy'] / eager['wall']:.1%}, launches {eager['outside']}, device "
               f"operations {eager['device']}, Jacobi kernel executions {eager['jacobi']}",
               flush=True)
         check(extra <= OUTSIDE_BAR, f"{label}: {extra} launches outside graphs beyond the vendor's")
         check(replay["jacobi"] == count,
               f"{label}: the trace shows {replay['jacobi']} Jacobi kernels, the counter {count}")
+        check(replay["leaf"] == leaf,
+              f"{label}: the trace shows {replay['leaf']} leaf kernels, the counter {leaf}")
 
     # the forced trip of phase 14 under replay: it trips, warns, and the
     # result is the vendor's on the same matrix
@@ -2698,9 +3005,14 @@ def sgd_(model_fn, params, loss, X, y, lr=0.1):
             p.sub_(lr * grads[name])
 
 
+# (window, leaf) kernel launches of one N=128 call by the mode of its chain
+# solve (1152²): eigenvalues, eigenpairs, none (LOBPCG)
+EIGVALS, EIGPAIRS, NO_DC = (2, 2), (6, 1), (0, 0)
+
+
 def entry_cases():
-    """Phase 16's entry points: ``(label, Jacobi launches, forced trip
-    possible, build)``; ``build()`` gives ``(call(X, y), model_fn, params,
+    """Phase 16's entry points: ``(label, (window, leaf) kernel launches,
+    forced trip possible, build)``; ``build()`` gives ``(call(X, y), model_fn, params,
     replace(), module form)``, ``params`` the tensors the calls read (a
     module's own storage), ``replace()`` swapping one of them for a new
     tensor (a module's: a copy; a model function's: half of it)."""
@@ -2750,29 +3062,29 @@ def entry_cases():
 
     damping = vtt.constant_damping(1.0)
     cases = [
-        (f"eigvalsh_structured N={N} (headline)", 2, True, module_form(
+        (f"eigvalsh_structured N={N} (headline)", EIGVALS, True, module_form(
             lambda m, p: lambda X, y: vtt.eigvalsh_structured(
                 m, loss, X, y, eig_backend="dc", return_eig_info=True, **HEADLINE))),
-        (f"eigvalsh N={N} (model function)", 2, True, function_form(
+        (f"eigvalsh N={N} (model function)", EIGVALS, True, function_form(
             lambda m, p: lambda X, y: vtt.eigvalsh(m, loss, X, y, **p, **settings))),
-        (f"eigh_topk N={N}, k={TOP_K} (dc)", 6, True, topk(vtt.eigh_topk, solver="dc")),
-        (f"directional_derivatives_topk N={N}, k={TOP_K} (dc)", 6, True,
+        (f"eigh_topk N={N}, k={TOP_K} (dc)", EIGPAIRS, True, topk(vtt.eigh_topk, solver="dc")),
+        (f"directional_derivatives_topk N={N}, k={TOP_K} (dc)", EIGPAIRS, True,
          topk(vtt.directional_derivatives_topk, solver="dc")),
-        (f"newton_step_structured N={N} (dc)", 6, True,
+        (f"newton_step_structured N={N} (dc)", EIGPAIRS, True,
          topk(vtt.newton_step_structured, damping=1.0, solver="dc")),
-        (f"newton_step_structured N={N} (lobpcg)", 0, False,
+        (f"newton_step_structured N={N} (lobpcg)", NO_DC, False,
          topk(vtt.newton_step_structured, damping=1.0, solver="lobpcg")),
     ]
     for form in ("model function", "module"):
         short = "module" if form == "module" else "function"
         cases += [
-            (f"EigvalshComputation N={N} ({form})", 2, True,
+            (f"EigvalshComputation N={N} ({form})", EIGVALS, True,
              comp(vtt.EigvalshComputation, False, short)),
-            (f"EighComputation N={N} ({form}, keep_top_k({TOP_K}))", 6, True,
+            (f"EighComputation N={N} ({form}, keep_top_k({TOP_K}))", EIGPAIRS, True,
              comp(vtt.EighComputation, True, short)),
-            (f"DirectionalDerivativesComputation N={N} ({form}, keep_top_k({TOP_K}))", 6, True,
+            (f"DirectionalDerivativesComputation N={N} ({form}, keep_top_k({TOP_K}))", EIGPAIRS, True,
              comp(vtt.DirectionalDerivativesComputation, True, short)),
-            (f"DirectionalDampedNewtonComputation N={N} ({form}, keep_top_k({TOP_K}))", 6, True,
+            (f"DirectionalDampedNewtonComputation N={N} ({form}, keep_top_k({TOP_K}))", EIGPAIRS, True,
              comp(vtt.DirectionalDampedNewtonComputation, True, short, damping=damping)),
         ]
     return loss, cases
@@ -2826,7 +3138,10 @@ def phase_entry_graphs(jc):
     :data:`ENTRY_BAR`."""
     import functools
 
+    import torch
+
     from vivit_tpu_torch import eigdc
+    from vivit_tpu_torch.kernels.jacobi_leaf_cuda import LEAF_MAX_M
     from vivit_tpu_torch.utils import graphs
 
     X, y = port_batch(N)
@@ -2835,7 +3150,7 @@ def phase_entry_graphs(jc):
     rows = []
     release_graphs("phase 16")
     with deterministic_cudnn():
-        for label, expect, trips, build in cases:
+        for label, (expect, expect_leaf), trips, build in cases:
             call, model_fn, params, replace, module = build()
             label = f"entry graphs: {label}"
 
@@ -2855,11 +3170,20 @@ def phase_entry_graphs(jc):
             entries = [graphs.entries()[k] for k in keys]
             steps = [f"{st.fn.__name__}{list(st.args[0].shape)}" for e in entries
                      for st in e.steps]
+            # the eager steps: none in eigenvalues mode, else the vendor's
+            # blocks above the leaf kernel's m (and LOBPCG's call)
+            vendor = [st for e in entries for st in e.steps if st.fn is torch.linalg.eigh]
+            check(all(st.args[0].shape[-1] > LEAF_MAX_M for st in vendor),
+                  f"{label}: a vendor step at m <= {LEAF_MAX_M}: {steps}")
+            if (expect, expect_leaf) == EIGVALS:
+                check(not steps, f"{label}: eager steps {steps} in an eigenvalues-mode call")
             # the replay against the eager body
-            out, count = launches_of(jc, lambda: untripped(lambda: call(X, y), label))
+            out, (count, leaf) = counts_of(lambda: untripped(lambda: call(X, y), label))
             check(entry_keys() == before | set(keys), f"{label}: the replay captured")
             check(count == expect, f"{label}: {count} Jacobi launches under replay, "
                   f"expected {expect}")
+            check(leaf == expect_leaf, f"{label}: {leaf} leaf-kernel launches under replay, "
+                  f"expected {expect_leaf}")
             with uncounted():
                 ref = untripped(eager_call, label)
             check(equal_results(out, ref), f"{label}: the replay differs from the eager body")
@@ -2895,6 +3219,8 @@ def phase_entry_graphs(jc):
                   "the vendor and LOBPCG steps' and the class's eager rest")
             check(replay["jacobi"] == count, f"{label}: the trace shows {replay['jacobi']} "
                   f"Jacobi kernels, the counter {count}")
+            check(replay["leaf"] == leaf, f"{label}: the trace shows {replay['leaf']} "
+                  f"leaf kernels, the counter {leaf}")
             solve_only = launch_profile(eager_call)
             # times in turns: the replay, solve-only graphs (the entry eager,
             # its chain-path solve replayed), no graphs at all
@@ -2942,8 +3268,9 @@ def phase_entry_graphs(jc):
             print(f"{label}: first call {t_first:.3f} ms (capture "
                   + " + ".join(f"{e.capture_s * 1e3:.3f}" for e in entries)
                   + f" ms host clock, warm-up included; {len(keys)} programs, "
-                  f"{sum(len(e.graphs) for e in entries)} graphs, Jacobi launches captured "
-                  f"per graph {[e.launches for e in entries]}, eager steps {steps}, pools "
+                  f"{sum(len(e.graphs) for e in entries)} graphs, (window, leaf) kernel "
+                  f"launches captured per graph {[e.launches for e in entries]}, eager steps "
+                  f"{steps}, pools "
                   + ", ".join(gb(b) for b in pools) + "); the replay bit-equal to the eager "
                   "body, after an in-place SGD step, on a new batch and after a replaced "
                   "parameter tensor (" + ("captured anew, the stale key dropped" if module
@@ -2954,7 +3281,8 @@ def phase_entry_graphs(jc):
                   f"outside graphs {replay['outside']} (the eager steps' own {own['outside']}, "
                   f"the class's eager rest after its program {rest['outside']}, the rest "
                   f"{extra}, bar {OUTSIDE_BAR}), graph launches {replay['graphs']}, "
-                  f"Jacobi kernel executions {replay['jacobi']} (counter {count}); solve-only "
+                  f"Jacobi kernel executions {replay['jacobi']} (counter {count}), leaf kernel "
+                  f"executions {replay['leaf']} (counter {leaf}); solve-only "
                   f"graphs {solve_only['wall']:.3f} ms, busy "
                   f"{solve_only['busy'] / solve_only['wall']:.1%}, launches "
                   f"{solve_only['outside']}; times (CUDA events around one call, median "
@@ -2996,15 +3324,22 @@ def main():
     ).stdout.strip().splitlines()[0]
     print(card, flush=True)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
-    _, build_s, log = jc.build()
-    print(f"Jacobi kernel build (nvcc, sm_90a): {build_s:.2f} s", flush=True)
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  {line.strip()}", flush=True)
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
+        builds = dict(zip(KERNEL_SOURCES, pool.map(jc.build, KERNEL_SOURCES)))
+    print(f"kernel builds (nvcc, sm_90a, one process per source, started together): "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    for name, (_, build_s, log) in builds.items():
+        print(f"  csrc/{name}.cu: {build_s:.2f} s", flush=True)
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"    {line.strip()}", flush=True)
 
     try:
         max_err, timing = phase_kernel(jc)
         phase_shape_sweep(jc)
+        phase_leaf_sweep()
+        phase_direct_solves()
         launches = phase_main_path(jc)
         model = port_model()
         small, evecs_launches, (gram_d, _, V_d), batches = phase_eigenpairs(jc, model, N, 6)
@@ -3072,6 +3407,13 @@ def main():
                streamed_launches[f"eigvalsh_streamed N={N_LARGE}"]))] + [
         {**kernel, "path": path, **win, "launches": route_launches[path]}
         for path, win in route_win.items()]
+    print("leaf-kernel launches per path: " + json.dumps(
+        {path: row["launches"] for path, row in LEAF_ROWS.items()}), flush=True)
+    leaf = {"name": "jacobi_leaf_eigh", "route": "cuda",
+            "source": "vivit_tpu_torch/csrc/jacobi_leaf.cu",
+            "replaces": "vivit_tpu/eigdc.py:360"}
+    # times: the sums over the path's leaf and edge batches of one solve
+    kernels += [{**leaf, "path": path, **row} for path, row in LEAF_ROWS.items()]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"command time: {time.perf_counter() - started:.1f} s (from the start of main)",
           flush=True)

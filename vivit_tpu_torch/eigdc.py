@@ -26,8 +26,9 @@ f32, built from matrix products:
      (``P H P``, full size) and solved by the recursive zoom chain
      (:func:`_basis`), which rescales by its own top at every link.
 
-   Leaves and the polish windows are solved by
-   :func:`vivit_tpu_torch.kernels.jacobi.batched_eigh`.
+   Leaves, edge blocks and the polish windows are solved by
+   :func:`vivit_tpu_torch.kernels.jacobi.batched_eigh`: on the card the
+   Jacobi kernels up to m = 160, ``torch.linalg.eigh`` above.
 4. **Polish** on ``H``: column selection with pad slack, deflation of the
    columns past the valid count, Newton-Schulz re-orthonormalization,
    ``QᵀHQ`` sorted by its diagonal, then per mode and path: Davies-Modi
@@ -45,12 +46,18 @@ f32, built from matrix products:
 On a CUDA tensor the chain path (no strip) runs as CUDA graphs, the port's
 counterpart of the JAX package's compiled program: the first call per
 shape and configuration captures the device work (:func:`_solve`), every
-later call replays it (:func:`vivit_tpu_torch.utils.graphs.run`).  The
-vendor solves of the leaves and edge blocks (``torch.linalg.eigh``, which
-reads cuSOLVER's status on the host) run eagerly between the graphs; the
-guard's read, its warning and its fallback run after the last one.  The
-strip path and a CPU tensor run eagerly.  Inside an entry point's captured
-call (:func:`vivit_tpu_torch.utils.graphs.stage`) the solve is part of the
+later call replays it (:func:`vivit_tpu_torch.utils.graphs.run`).  Every
+leaf and edge block up to m = 160 goes to a Jacobi kernel inside the
+graphs.  A larger one goes to the vendor's solve (``torch.linalg.eigh``,
+which reads cuSOLVER's status on the host), which runs eagerly between
+two graphs.  At n = 1152 with the default knobs the eigenvalues-mode
+solve is one graph with no eager step, and the eigenvector-mode solve
+has two, its zoom tail ``[1,240,240]`` and bottom block ``[1,320,320]``.
+The guard's read, its warning and its fallback run after the last graph.
+The strip path and a CPU tensor run eagerly; on the strip path a single
+block of m ≥ 72 goes to the vendor, faster alone (:func:`_solve_strip`).
+Inside an entry point's captured call
+(:func:`vivit_tpu_torch.utils.graphs.stage`) the solve is part of the
 call's body: it opens no graphs of its own, and its guard hands its verdict
 to the call, which reads it after the replay (:func:`_deferred`).
 
@@ -77,6 +84,7 @@ import numpy as np
 import torch
 
 from vivit_tpu_torch.eig import no_trip_info
+from vivit_tpu_torch.kernels import jacobi
 from vivit_tpu_torch.kernels.jacobi import batched_eigh
 from vivit_tpu_torch.precision import full_f32
 from vivit_tpu_torch.utils import graphs
@@ -638,7 +646,11 @@ def eigh_dc(
     """Full spectrum of a symmetric PSD matrix: ``(evals [n] ascending,
     evecs [n, n] or None[, info])``.
 
-    ``n ≤ max(base, 128)`` goes straight to ``torch.linalg.eigh``.  The
+    ``n ≤ max(base, 128)`` is solved directly: where
+    :func:`vivit_tpu_torch.kernels.jacobi.route` gives the leaf kernel (a
+    CUDA tensor of ``n ≤ 160`` but 32, 48 and 64), by that kernel, captured
+    with the rest of a body; else by ``torch.linalg.eigh`` (``eigvalsh``
+    for eigenvalues) as an eager step.  The
     keywords are the JAX package's, with its defaults, and select the same
     computations:
 
@@ -681,7 +693,13 @@ def eigh_dc(
     with full_f32():
         H = (0.5 * (H + H.T)).to(_F32)
         if n <= max(base, 2 * _MARGIN):
-            if eigenvectors:
+            # the leaf kernel on the card, which a captured body keeps
+            # whole; else, the window sizes included, the vendor's solve,
+            # as the JAX package's direct solve
+            if jacobi.route((1, n, n), H.dtype, H.device) == "leaf":
+                evals, evecs = (x[0] for x in batched_eigh(H[None]))
+                evecs = evecs if eigenvectors else None
+            elif eigenvectors:
                 evals, evecs = graphs.eager(torch.linalg.eigh, H)
             else:
                 evals, evecs = graphs.eager(torch.linalg.eigvalsh, H), None
@@ -710,7 +728,10 @@ def eigh_dc(
             deskew_prec=deskew_prec, deskew_terms=deskew_terms, strip=strip,
             kpm_tree=kpm_tree, ladder=ladder,
             tail_merge=not eigenvectors if tail_merge is None else tail_merge)
-        solve = _solve_captured if H.is_cuda and not strip_on else _solve_eager
+        if strip_on:
+            solve = _solve_strip
+        else:
+            solve = _solve_captured if H.is_cuda else _solve_eager
         out = solve(H, 0 if key is None else key, cfg, polish, eigenvectors,
                     guard is not None)
         if graphs.deferring():
@@ -722,6 +743,14 @@ def _solve_eager(H, seed, cfg, polish, eigenvectors, guarded):
     """:func:`_solve` run eagerly, its draws from a generator on ``H``'s
     device seeded with ``seed``."""
     return _solve(graphs.generator(H.device, seed), H, cfg, polish, eigenvectors, guarded)
+
+
+def _solve_strip(H, seed, cfg, polish, eigenvectors, guarded):
+    """:func:`_solve_eager` on the strip path, which no graph captures: its
+    single matrices that the vendor solves faster alone go there
+    (:func:`vivit_tpu_torch.kernels.jacobi.outside_graphs`)."""
+    with jacobi.outside_graphs():
+        return _solve_eager(H, seed, cfg, polish, eigenvectors, guarded)
 
 
 def _solve_captured(H, seed, cfg, polish, eigenvectors, guarded):

@@ -50,7 +50,6 @@ KERNEL_SIZES = (32, 48, 64)
 LAUNCHES = 0
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SOURCE = os.path.join(_PKG_DIR, "csrc", "jacobi.cu")
 _BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 _LIB = None
 _SCHEDULES = {}  # (m, device) -> the schedule table on that device
@@ -128,14 +127,14 @@ def _check_sweeps(sweeps):
         raise ValueError(f"batched Jacobi runs at least one sweep, got sweeps={sweeps!r}")
 
 
-def _check_shape(A):
+def _check_shape(A, max_m=MAX_M):
     if A.dtype != torch.float32:
         raise TypeError(f"batched Jacobi takes float32, got {A.dtype}")
     if A.dim() != 3 or A.shape[-1] != A.shape[-2]:
         raise ValueError(f"batched Jacobi takes [B, m, m], got {tuple(A.shape)}")
     m = A.shape[-1]
-    if m < 2 or m > MAX_M or m % 2:
-        raise ValueError(f"batched Jacobi takes even 2 <= m <= {MAX_M}, got {m}")
+    if m < 2 or m > max_m or m % 2:
+        raise ValueError(f"batched Jacobi takes even 2 <= m <= {max_m}, got {m}")
 
 
 def batched_eigh_jacobi_plain(A: torch.Tensor, exit_early: bool = False,
@@ -149,7 +148,17 @@ def batched_eigh_jacobi_plain(A: torch.Tensor, exit_early: bool = False,
     ``return_sweeps`` adds the sweeps that rule runs for each matrix (int32
     ``[B]``, at most ``sweeps``), with or without ``exit_early``.
     """
-    _check_shape(A)
+    d, V, ran = jacobi_sweeps_plain(A, exit_early, sweeps)
+    evals, evecs = _sort(d, V)
+    return (evals, evecs, ran) if return_sweeps else (evals, evecs)
+
+
+def jacobi_sweeps_plain(A: torch.Tensor, exit_early: bool = False, sweeps: int = SWEEPS,
+                        max_m: int = MAX_M):
+    """The sweeps of :func:`batched_eigh_jacobi_plain` before the sort:
+    ``(diagonal [B, m], V [B, m, m], sweeps run [B])`` for even
+    ``m <= max_m`` (the leaf route passes its own bound)."""
+    _check_shape(A, max_m)
     _check_sweeps(sweeps)
     b, m, _ = A.shape
     A = 0.5 * (A + A.transpose(-1, -2))
@@ -186,25 +195,27 @@ def batched_eigh_jacobi_plain(A: torch.Tensor, exit_early: bool = False,
         ran = torch.where(~rotated & (ran == sweeps), sweep + 1, ran)
         if exit_early and bool((ran < sweeps).all()):
             break
-    evals, evecs = _sort(torch.diagonal(A, dim1=-2, dim2=-1), V)
-    return (evals, evecs, ran) if return_sweeps else (evals, evecs)
+    return torch.diagonal(A, dim1=-2, dim2=-1), V, ran
 
 
-def build():
-    """Compile ``csrc/jacobi.cu`` for ``sm_90a`` (once per version of the
-    source and flags) and return ``(library path, seconds, compiler output)``."""
+def build(name: str = "jacobi"):
+    """Compile ``csrc/<name>.cu`` (this module's kernel, or ``jacobi_leaf``
+    for :mod:`vivit_tpu_torch.kernels.jacobi_leaf_cuda`) for ``sm_90a``, once
+    per version of the source and flags, and return ``(library path,
+    seconds, compiler output)``."""
     import subprocess
 
-    with open(_SOURCE, "rb") as fh:
+    source = os.path.join(_PKG_DIR, "csrc", f"{name}.cu")
+    with open(source, "rb") as fh:
         digest = hashlib.sha256(fh.read() + " ".join(_NVCC_FLAGS).encode())
-    lib_path = os.path.join(_BUILD_DIR, f"libjacobi_{digest.hexdigest()[:12]}.so")
+    lib_path = os.path.join(_BUILD_DIR, f"lib{name}_{digest.hexdigest()[:12]}.so")
     if os.path.exists(lib_path):
         return lib_path, 0.0, ""
     os.makedirs(_BUILD_DIR, exist_ok=True)
     cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
     nvcc = os.path.join(cuda_home, "bin", "nvcc")
     tmp = f"{lib_path}.{os.getpid()}.tmp"
-    cmd = [nvcc, *_NVCC_FLAGS, "-o", tmp, _SOURCE]
+    cmd = [nvcc, *_NVCC_FLAGS, "-o", tmp, source]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     seconds = time.perf_counter() - t0

@@ -18,8 +18,9 @@ inputs (copied in before each replay) and outputs (cloned out after it, so
 that the next replay cannot overwrite what a caller holds); generators
 registered with every graph and re-seeded before each replay, so that a
 replay draws what an eager call with the same seeds draws; and the Jacobi
-kernel's launches captured in each graph, which every replay adds to
-``jacobi_cuda.LAUNCHES``.
+kernels' launches captured in each graph, which every replay adds to their
+counters (``jacobi_cuda.LAUNCHES`` for the windows,
+``jacobi_leaf_cuda.LAUNCHES`` for the leaves and edge blocks).
 
 Bodies nest.  Inside a running body :func:`run` captures nothing of its
 own: its ``fn`` runs inline, its draws from a generator of its own
@@ -52,8 +53,11 @@ import time
 
 import torch
 
-from vivit_tpu_torch.kernels import jacobi_cuda
+from vivit_tpu_torch.kernels import jacobi_cuda, jacobi_leaf_cuda
 
+# the kernels' launch counters: a capture launches nothing, a replay adds
+# what its graphs captured
+_COUNTED = (jacobi_cuda, jacobi_leaf_cuda)
 _CACHE = {}
 _STREAMS = {}  # device -> the side stream of its warm-ups and captures
 _ACTIVE = None  # the Segments running a body, if any
@@ -192,7 +196,8 @@ class Entry:
 
     def _play(self, i):
         self.graphs[i].replay()
-        jacobi_cuda.LAUNCHES += self.launches[i]
+        for kernel, n in zip(_COUNTED, self.launches[i]):
+            kernel.LAUNCHES += n
 
     def _seed(self, seed):
         self.gen.manual_seed(seed)
@@ -227,14 +232,14 @@ class _Capture(Segments):
         self.steps = entry.steps
         self.guards = entry.guards
         self.graph = None
-        self.mark = 0
+        self.mark = ()
 
     def begin(self):
         super().begin()
         graph = torch.cuda.CUDAGraph()
         for gen in (self.entry.gen, *self.entry.gens):
             graph.register_generator_state(gen)
-        self.mark = jacobi_cuda.LAUNCHES
+        self.mark = _launches()
         graph.capture_begin(pool=self.entry.pool)
         self.graph = graph
 
@@ -242,9 +247,10 @@ class _Capture(Segments):
         graph, self.graph = self.graph, None
         graph.capture_end()
         super().end()
-        # the wrapper counted its calls, but a capture launches nothing
-        captured = jacobi_cuda.LAUNCHES - self.mark
-        jacobi_cuda.LAUNCHES = self.mark
+        # the wrappers counted their calls, but a capture launches nothing
+        captured = tuple(now - then for now, then in zip(_launches(), self.mark))
+        for kernel, then in zip(_COUNTED, self.mark):
+            kernel.LAUNCHES = then
         self.entry.graphs.append(graph)
         self.entry.launches.append(captured)
         self.entry._play(len(self.entry.graphs) - 1)
@@ -271,6 +277,11 @@ class _Capture(Segments):
                 graph.capture_end()
             except RuntimeError:
                 pass  # the capture was already invalidated; the failure is raised
+
+
+def _launches():
+    """Each kernel's launch count, in the order of :data:`_COUNTED`."""
+    return tuple(kernel.LAUNCHES for kernel in _COUNTED)
 
 
 def _tensors(out):
