@@ -41,7 +41,14 @@ f32, built from matrix products:
 5. **Guard**: the solver measures its own perturbation bound and basis
    orthonormality; past ``guard`` the result comes from
    ``torch.linalg.eigh``/``eigvalsh`` instead.  This is the only host read
-   of the solve, at its end, after the device work.
+   of the solve, at its end, after the device work.  Each verdict past
+   ``guard`` that it reads adds one to :data:`TRIPS`, the operator's count
+   of the solves rerun on the vendor's.
+
+The solve's stages are spans (:mod:`vivit_tpu_torch.utils.trace`):
+``eigh_dc.basis`` (step 3 from the root), ``eigh_dc.polish`` (step 4),
+``eigh_dc.guard`` (step 5's terms, and its read) and ``eigh_dc.rerun``
+(the vendor's solve after a trip); inside a graph none records.
 
 On a CUDA tensor the chain path (no strip) runs as CUDA graphs, the port's
 counterpart of the JAX package's compiled program: the first call per
@@ -87,7 +94,7 @@ from vivit_tpu_torch.eig import no_trip_info
 from vivit_tpu_torch.kernels import jacobi
 from vivit_tpu_torch.kernels.jacobi import batched_eigh
 from vivit_tpu_torch.precision import full_f32
-from vivit_tpu_torch.utils import graphs
+from vivit_tpu_torch.utils import graphs, trace
 
 # polar-express degree-5 coefficients (slope 3.44 per step)
 _PX_A, _PX_B, _PX_C = 3.4445, -4.7750, 2.0315
@@ -97,6 +104,9 @@ _SIGMA_FLOOR = 0.04
 _MARGIN = 64
 _PAD_SLACK = 32
 _STRIP_MIN = 1536
+# the guard's trips: verdicts past the threshold read on the host, each a
+# rerun of the solve on the vendor's (see the module docstring)
+TRIPS = 0
 # the JAX package's precision names; the port runs every one in full f32
 _PRECISIONS = (None, "highest", "high")
 
@@ -772,89 +782,92 @@ def _solve(gen, H, cfg, polish, eigenvectors, guarded):
     ``guarded``)."""
     n = H.shape[0]
     count = torch.full((), float(n), dtype=_F32, device=H.device)
-    Q, mask = _basis(H, count, gen, 0, cfg)
+    with trace.span("eigh_dc.basis", H):
+        Q, mask = _basis(H, count, gen, 0, cfg)
 
-    # Select n + slack columns: the mask dominates, then column norm.  The
-    # pad columns collapse to spurious zeros and are dropped at the end.
-    colnorm = torch.linalg.vector_norm(Q, dim=0)
-    rel = colnorm / (colnorm.max() + 1e-30)
-    score = torch.where(mask, 2.0, 0.0) + rel
-    m = n + min(_pad_slack(n), Q.shape[1] - n)
-    order = torch.topk(score, m).indices
-    Q = Q[:, order]
+    with trace.span("eigh_dc.polish", H):
+        # Select n + slack columns: the mask dominates, then column norm.  The
+        # pad columns collapse to spurious zeros and are dropped at the end.
+        colnorm = torch.linalg.vector_norm(Q, dim=0)
+        rel = colnorm / (colnorm.max() + 1e-30)
+        score = torch.where(mask, 2.0, 0.0) + rel
+        m = n + min(_pad_slack(n), Q.shape[1] - n)
+        order = torch.topk(score, m).indices
+        Q = Q[:, order]
 
-    # deflate the columns past the valid count against the leading ones
-    n_valid = torch.clamp(mask[order].sum(), max=n)
-    lead = (torch.arange(m, device=H.device) < n_valid).to(_F32)[None, :]
-    Qlead, Qtail = Q * lead, Q * (1.0 - lead)
-    for _ in range(2):
-        Qtail = Qtail - Qlead @ (Qlead.T @ Qtail)
-    Q = Qlead + Qtail
+        # deflate the columns past the valid count against the leading ones
+        n_valid = torch.clamp(mask[order].sum(), max=n)
+        lead = (torch.arange(m, device=H.device) < n_valid).to(_F32)[None, :]
+        Qlead, Qtail = Q * lead, Q * (1.0 - lead)
+        for _ in range(2):
+            Qtail = Qtail - Qlead @ (Qlead.T @ Qtail)
+        Q = Qlead + Qtail
 
-    # global re-orthonormalization
-    for _ in range(polish["ns"]):
-        Q = 1.5 * Q - 0.5 * (Q @ (Q.T @ Q))
+        # global re-orthonormalization
+        for _ in range(polish["ns"]):
+            Q = 1.5 * Q - 0.5 * (Q @ (Q.T @ Q))
 
-    Bt = _compress(Q, H)
-    rayleigh0 = torch.diagonal(Bt).clone()  # column-aligned with Q, for guard
-    # eigenvalues mode rotates Bt alone: Q is needed only to return vectors
-    Bt, Qp = _sort_by_diag(Bt, Q if eigenvectors else None)
-    # windows widen once the relative spacing falls under the couplings
-    w = 64 if m >= 2048 else 32
-    dm, wj, dm_ns = polish["dm"], polish["wj"], polish["dm_ns"]
-    for _ in range(dm[0]):
-        Bt, Qp = _dm_iteration(Bt, Qp, dm_ns)
-    for _ in range(wj[0]):
-        Bt, Qp = _windowed_jacobi(Bt, Qp, w)
-    for _ in range(dm[1]):
-        Bt, Qp = _dm_iteration(Bt, Qp, dm_ns)
-    for _ in range(wj[1]):
-        Bt, Qp = _windowed_jacobi(Bt, Qp, w)
-    Bt, Qp = _edge_block(Bt, Qp, polish["edge"], top=False)
-    if m >= _STRIP_MIN:  # the JAX package's gate: m, not the strip threshold
-        Bt, Qp = _edge_block(*_sort_by_diag(Bt, Qp), polish["edge"], top=True)
-    # clusters straddling the bottom-block boundary: one more local sweep
-    for _ in range(wj[2]):
-        Bt, Qp = _windowed_jacobi(Bt, Qp, w)
-    for _ in range(dm[2]):
-        Bt, Qp = _dm_iteration(Bt, Qp, dm_ns)
+        Bt = _compress(Q, H)
+        rayleigh0 = torch.diagonal(Bt).clone()  # column-aligned with Q, for guard
+        # eigenvalues mode rotates Bt alone: Q is needed only to return vectors
+        Bt, Qp = _sort_by_diag(Bt, Q if eigenvectors else None)
+        # windows widen once the relative spacing falls under the couplings
+        w = 64 if m >= 2048 else 32
+        dm, wj, dm_ns = polish["dm"], polish["wj"], polish["dm_ns"]
+        for _ in range(dm[0]):
+            Bt, Qp = _dm_iteration(Bt, Qp, dm_ns)
+        for _ in range(wj[0]):
+            Bt, Qp = _windowed_jacobi(Bt, Qp, w)
+        for _ in range(dm[1]):
+            Bt, Qp = _dm_iteration(Bt, Qp, dm_ns)
+        for _ in range(wj[1]):
+            Bt, Qp = _windowed_jacobi(Bt, Qp, w)
+        Bt, Qp = _edge_block(Bt, Qp, polish["edge"], top=False)
+        if m >= _STRIP_MIN:  # the JAX package's gate: m, not the strip threshold
+            Bt, Qp = _edge_block(*_sort_by_diag(Bt, Qp), polish["edge"], top=True)
+        # clusters straddling the bottom-block boundary: one more local sweep
+        for _ in range(wj[2]):
+            Bt, Qp = _windowed_jacobi(Bt, Qp, w)
+        for _ in range(dm[2]):
+            Bt, Qp = _dm_iteration(Bt, Qp, dm_ns)
 
-    d = torch.diagonal(Bt)
-    E = Bt - torch.diag(d)
-    if not eigenvectors:
-        # second-order correction Σ_j E_ij²/(d_i − d_j) over well-separated
-        # pairs (eigenvector mode skips it: the vectors would lag the values)
-        gap0 = d[:, None] - d[None, :]
-        ok0 = gap0.abs() > 3.0 * E.abs()
-        safe_gap0 = torch.where(gap0 == 0.0, torch.ones_like(gap0), gap0)
-        corr = torch.where(ok0, E * E / safe_gap0, torch.zeros_like(E))
-        d = d + corr.sum(dim=1)
-    order = torch.argsort(d)
-    pad = m - n
-    evals = d[order][pad:]
-    evecs = Qp[:, order][:, pad:] if eigenvectors else None
+        d = torch.diagonal(Bt)
+        E = Bt - torch.diag(d)
+        if not eigenvectors:
+            # second-order correction Σ_j E_ij²/(d_i − d_j) over well-separated
+            # pairs (eigenvector mode skips it: the vectors would lag the values)
+            gap0 = d[:, None] - d[None, :]
+            ok0 = gap0.abs() > 3.0 * E.abs()
+            safe_gap0 = torch.where(gap0 == 0.0, torch.ones_like(gap0), gap0)
+            corr = torch.where(ok0, E * E / safe_gap0, torch.zeros_like(E))
+            d = d + corr.sum(dim=1)
+        order = torch.argsort(d)
+        pad = m - n
+        evals = d[order][pad:]
+        evecs = Qp[:, order][:, pad:] if eigenvectors else None
 
     if not guarded:
         return evals, evecs, None, None, None
 
-    # defect 1: perturbation bound of the remaining couplings; in eigenvalues
-    # mode the pairs the correction handled are third order there
-    lmax = d.abs().max() + 1e-30
-    I_m = torch.eye(m, dtype=_F32, device=H.device)
-    gap = (d[None, :] - d[:, None]).abs() + I_m
-    term = torch.minimum(E * E / gap.clamp(min=1e-30), E.abs())
-    if not eigenvectors:
-        third = E.abs() * torch.square(E / gap0.abs().clamp(min=1e-30))
-        term = torch.where(ok0, torch.minimum(third, E.abs()), term)
-    bound = (term * (1.0 - I_m)).sum(dim=1).max() / lmax
-    # defect 2: orthonormality among the significant columns: the returned
-    # eigenvectors, or the pre-polish basis with its own Rayleigh diagonal
-    Qc, dq = (evecs, evals) if eigenvectors else (Q, rayleigh0)
-    sig = (dq.abs() > 1e-4 * lmax).to(_F32)
-    eye_c = torch.eye(Qc.shape[1], dtype=_F32, device=H.device)
-    gram_q = (Qc.T @ Qc - eye_c) * (sig[:, None] * sig[None, :])
-    orth = torch.linalg.matrix_norm(gram_q) / torch.sqrt(sig.sum() + 1.0)
-    return evals, evecs, bound, orth, torch.isnan(d).any()
+    with trace.span("eigh_dc.guard", H):
+        # defect 1: perturbation bound of the remaining couplings; in eigenvalues
+        # mode the pairs the correction handled are third order there
+        lmax = d.abs().max() + 1e-30
+        I_m = torch.eye(m, dtype=_F32, device=H.device)
+        gap = (d[None, :] - d[:, None]).abs() + I_m
+        term = torch.minimum(E * E / gap.clamp(min=1e-30), E.abs())
+        if not eigenvectors:
+            third = E.abs() * torch.square(E / gap0.abs().clamp(min=1e-30))
+            term = torch.where(ok0, torch.minimum(third, E.abs()), term)
+        bound = (term * (1.0 - I_m)).sum(dim=1).max() / lmax
+        # defect 2: orthonormality among the significant columns: the returned
+        # eigenvectors, or the pre-polish basis with its own Rayleigh diagonal
+        Qc, dq = (evecs, evals) if eigenvectors else (Q, rayleigh0)
+        sig = (dq.abs() > 1e-4 * lmax).to(_F32)
+        eye_c = torch.eye(Qc.shape[1], dtype=_F32, device=H.device)
+        gram_q = (Qc.T @ Qc - eye_c) * (sig[:, None] * sig[None, :])
+        orth = torch.linalg.matrix_norm(gram_q) / torch.sqrt(sig.sum() + 1.0)
+        return evals, evecs, bound, orth, torch.isnan(d).any()
 
 
 def _guarded(H, evals, evecs, bound, orth, nan, eigenvectors, guard, return_info):
@@ -862,9 +875,13 @@ def _guarded(H, evals, evecs, bound, orth, nan, eigenvectors, guard, return_info
     its place past ``guard``."""
     if guard is None:
         return (evals, evecs, no_trip_info(H.device)) if return_info else (evals, evecs)
-    bad = (bound > guard) | (orth > guard) | nan
-    info = {"tripped": bad, "bound": bound, "orth": orth}
-    if bool(bad):  # the solve's one host read
+    global TRIPS
+    with trace.span("eigh_dc.guard", H):
+        bad = (bound > guard) | (orth > guard) | nan
+        info = {"tripped": bad, "bound": bound, "orth": orth}
+        tripped = bool(bad)  # the solve's one host read
+    if tripped:
+        TRIPS += 1
         vendor = "torch.linalg.eigh" if eigenvectors else "torch.linalg.eigvalsh"
         warnings.warn(
             "eigh_dc runtime guard tripped (perturbation bound "
@@ -873,10 +890,11 @@ def _guarded(H, evals, evecs, bound, orth, nan, eigenvectors, guard, return_info
             "solvers.",
             stacklevel=3,
         )
-        if eigenvectors:
-            evals, evecs = torch.linalg.eigh(H)
-        else:
-            evals = torch.linalg.eigvalsh(H)
+        with trace.span("eigh_dc.rerun", H):
+            if eigenvectors:
+                evals, evecs = torch.linalg.eigh(H)
+            else:
+                evals = torch.linalg.eigvalsh(H)
     return (evals, evecs, info) if return_info else (evals, evecs)
 
 

@@ -57,6 +57,7 @@ import torch
 
 from vivit_tpu_torch.kernels.jacobi_cuda import KERNEL_SIZES, batched_eigh_jacobi
 from vivit_tpu_torch.kernels.jacobi_leaf_cuda import LEAF_MAX_M, batched_eigh_leaf
+from vivit_tpu_torch.utils import trace
 from vivit_tpu_torch.utils.graphs import eager as eager_step
 
 # the smallest m at which one matrix solved outside any graph goes to the
@@ -118,10 +119,12 @@ def outside_graphs():
 
 def batched_eigh(A: torch.Tensor):
     """Batched symmetric eigendecomposition: ``[B, m, m] -> (evals [B, m]
-    ascending, evecs [B, m, m])``, by :func:`route`."""
+    ascending, evecs [B, m, m])``, by :func:`route`; timed as the span
+    ``leaves`` (:mod:`vivit_tpu_torch.utils.trace`)."""
     way = route(A.shape, A.dtype, A.device, _OUTSIDE_GRAPHS)
-    if way == "window":
-        return batched_eigh_jacobi(A.contiguous())
-    if way == "leaf":
-        return batched_eigh_leaf(A.contiguous())
-    return eager_step(torch.linalg.eigh, A)
+    with trace.span("leaves", A):
+        if way == "window":
+            return batched_eigh_jacobi(A.contiguous())
+        if way == "leaf":
+            return batched_eigh_leaf(A.contiguous())
+        return eager_step(torch.linalg.eigh, A)

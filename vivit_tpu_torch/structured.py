@@ -16,6 +16,7 @@ import torch
 from torch import nn
 
 from vivit_tpu_torch.losses import Loss
+from vivit_tpu_torch.utils import trace
 
 
 @dataclass
@@ -307,7 +308,10 @@ def eigvalsh_structured(
     guard info.  On the card the call is captured
     (:func:`vivit_tpu_torch.utils.graphs.captured`): its first call per key
     (:func:`vivit_tpu_torch.utils.graphs.entry_key`) captures it as CUDA
-    graphs, later calls replay them.
+    graphs, later calls replay them.  The call's stages are spans
+    (:mod:`vivit_tpu_torch.utils.trace`): ``eigvalsh_structured`` from the
+    inputs on the device to the result, ``vtransform``, and per group
+    ``gram`` and ``eigensolve``.
     """
     from vivit_tpu_torch.eig import full_eigh
     from vivit_tpu_torch.engines import forward_fn, module_params
@@ -327,16 +331,19 @@ def eigvalsh_structured(
 
     def body(X, y, _params):
         with matmul_precision(precision):
-            vt = structured_ggn_sqrt_vt(module, loss, X, y, subsampling=subsampling,
-                                        mc_samples=mc_samples, key=key,
-                                        deflate_ce_null=deflate_ce_null, engine=engine,
-                                        conv_vt_dtype=conv_vt_dtype)
+            with trace.span("vtransform", X):
+                vt = structured_ggn_sqrt_vt(module, loss, X, y, subsampling=subsampling,
+                                            mc_samples=mc_samples, key=key,
+                                            deflate_ce_null=deflate_ce_null, engine=engine,
+                                            conv_vt_dtype=conv_vt_dtype)
             evals, infos = [], []
             for paths in group_paths:
-                gram = gram_matrix_mixed(
-                    vt, paths, generic_precision=_PRECISIONS[gram_precision])
-                ev, _, info = full_eigh(gram, backend=eig_backend,
-                                        eigenvectors=False, return_info=True)
+                with trace.span("gram", X):
+                    gram = gram_matrix_mixed(
+                        vt, paths, generic_precision=_PRECISIONS[gram_precision])
+                with trace.span("eigensolve", X):
+                    ev, _, info = full_eigh(gram, backend=eig_backend,
+                                            eigenvectors=False, return_info=True)
                 if deflate_ce_null:
                     zeros = torch.zeros(s, dtype=ev.dtype, device=ev.device)
                     ev = torch.sort(torch.cat([zeros, ev])).values
@@ -346,11 +353,13 @@ def eigvalsh_structured(
             return tuple(evals), tuple(infos)
         return tuple(evals)
 
-    cache_key = graphs.entry_key(
-        "eigvalsh_structured", module, None, X, y, loss, group_paths=group_paths,
-        subsampling=subsampling, mc_samples=mc_samples, precision=precision, gram_precision=gram_precision,
-        eig_backend=eig_backend, deflate_ce_null=deflate_ce_null, engine=engine,
-        conv_vt_dtype=conv_vt_dtype, return_eig_info=return_eig_info)
-    return graphs.entry(cache_key, body, X, y, None, lambda: graphs.captured(
-        X, mc_samples, eig_backend, lambda: graphs.gram_side(
-            forward_fn(module), module_params(module), X, subsampling, deflate_ce_null)))
+    with trace.span("eigvalsh_structured", X):
+        cache_key = graphs.entry_key(
+            "eigvalsh_structured", module, None, X, y, loss, group_paths=group_paths,
+            subsampling=subsampling, mc_samples=mc_samples, precision=precision,
+            gram_precision=gram_precision, eig_backend=eig_backend,
+            deflate_ce_null=deflate_ce_null, engine=engine, conv_vt_dtype=conv_vt_dtype,
+            return_eig_info=return_eig_info)
+        return graphs.entry(cache_key, body, X, y, None, lambda: graphs.captured(
+            X, mc_samples, eig_backend, lambda: graphs.gram_side(
+                forward_fn(module), module_params(module), X, subsampling, deflate_ce_null)))

@@ -23,6 +23,11 @@ Every other parameter (other layer types, grouped or string-padded convs,
 layers applied more than once) goes to the generic engine
 (:func:`vivit_tpu_torch.ggn.ggn_sqrt_vt`) over those parameters alone: the
 result is exact either way, the table is a fast path.
+
+The steps are spans (:mod:`vivit_tpu_torch.utils.trace`):
+``vtransform.forward`` (the tapped forward), ``vtransform.loss_hessian_sqrt``
+(the loss factors), ``vtransform.backward`` (the ``CF'`` backwards) and
+``vtransform.reconstruct`` (step 2 and the generic engine).
 """
 
 from typing import Any, Dict, Optional, Sequence, Tuple
@@ -33,6 +38,7 @@ from torch import nn
 
 from vivit_tpu_torch.ggn import _sample_ids, _subsample, ggn_sqrt_vt, v_factors
 from vivit_tpu_torch.losses import Loss
+from vivit_tpu_torch.utils import trace
 from vivit_tpu_torch.utils.checks import check_subsampling_unique
 
 
@@ -148,73 +154,77 @@ def tapped_ggn_sqrt_vt(
             return out + taps[name]
         return hook
 
-    handles = [m.register_forward_hook(hook_for(name))
-               for name, m in layers.items()]
-    try:
-        with torch.enable_grad():
-            f = module(Xs)
-    finally:
-        for h in handles:
-            h.remove()
+    with trace.span("vtransform.forward", X):
+        handles = [m.register_forward_hook(hook_for(name))
+                   for name, m in layers.items()]
+        try:
+            with torch.enable_grad():
+                f = module(Xs)
+        finally:
+            for h in handles:
+                h.remove()
 
-    factors = v_factors(loss, f.detach(), ys, batch_size=N, mc_samples=mc_samples,
-                        key=key, sample_ids=ids, column_scale=column_scale,
-                        deflate_ce_null=deflate_ce_null)  # [S, CF', C]
+    with trace.span("vtransform.loss_hessian_sqrt", X):
+        factors = v_factors(loss, f.detach(), ys, batch_size=N, mc_samples=mc_samples,
+                            key=key, sample_ids=ids, column_scale=column_scale,
+                            deflate_ce_null=deflate_ce_null)  # [S, CF', C]
     cots = factors.transpose(0, 1)  # [CF', S, C]
     names = list(taps)
     tap_list = [taps[n] for n in names]
-    columns = [
-        torch.autograd.grad(f, tap_list, grad_outputs=cot,
-                            retain_graph=i + 1 < len(cots), allow_unused=True)
-        for i, cot in enumerate(cots)
-    ] if names else []
-    mixed: Dict[str, Any] = {}
-    for j, name in enumerate(names):
-        if name in repeated:
-            continue
-        m = layers[name]
-        z = zs[name]
-        d = torch.stack([col[j] if col[j] is not None else torch.zeros_like(tap_list[j])
-                         for col in columns])  # [CF', S, *out]
-        cf, s = d.shape[:2]
-        prefix = f"{name}." if name else ""
-        if type(m) is nn.Linear:
-            if z.dim() == 2:
-                mixed[prefix + "weight"] = DenseFactor(z=z, delta=d)
-                if m.bias is not None:
-                    mixed[prefix + "bias"] = d
+    with trace.span("vtransform.backward", X):
+        columns = [
+            torch.autograd.grad(f, tap_list, grad_outputs=cot,
+                                retain_graph=i + 1 < len(cots), allow_unused=True)
+            for i, cot in enumerate(cots)
+        ] if names else []
+    with trace.span("vtransform.reconstruct", X):
+        mixed: Dict[str, Any] = {}
+        for j, name in enumerate(names):
+            if name in repeated:
+                continue
+            m = layers[name]
+            z = zs[name]
+            d = torch.stack([col[j] if col[j] is not None else torch.zeros_like(tap_list[j])
+                             for col in columns])  # [CF', S, *out]
+            cf, s = d.shape[:2]
+            prefix = f"{name}." if name else ""
+            if type(m) is nn.Linear:
+                if z.dim() == 2:
+                    mixed[prefix + "weight"] = DenseFactor(z=z, delta=d)
+                    if m.bias is not None:
+                        mixed[prefix + "bias"] = d
+                else:
+                    # extra input dimensions: the Kronecker terms summed over them
+                    zf = z.reshape(s, -1, z.shape[-1])
+                    df = d.reshape(cf, s, -1, d.shape[-1])
+                    mixed[prefix + "weight"] = torch.einsum("npi,cnpo->cnoi", zf, df)
+                    if m.bias is not None:
+                        mixed[prefix + "bias"] = df.sum(dim=2)
             else:
-                # extra input dimensions: the Kronecker terms summed over them
-                zf = z.reshape(s, -1, z.shape[-1])
-                df = d.reshape(cf, s, -1, d.shape[-1])
-                mixed[prefix + "weight"] = torch.einsum("npi,cnpo->cnoi", zf, df)
+                patches = F.unfold(z, m.kernel_size, dilation=m.dilation,
+                                   padding=m.padding, stride=m.stride)  # [S, K, L]
+                df = d.reshape(cf, s, d.shape[2], -1)  # [CF', S, O, L]
+                vt = torch.einsum("skl,csol->csko", patches, df)
+                if conv_vt_dtype is not None:
+                    vt = vt.to(conv_vt_dtype)
+                o, i, kh, kw = m.weight.shape
+                mixed[prefix + "weight"] = ConvVT(
+                    vt.reshape(cf, s, i, kh, kw, o), m.weight.shape)
                 if m.bias is not None:
-                    mixed[prefix + "bias"] = df.sum(dim=2)
-        else:
-            patches = F.unfold(z, m.kernel_size, dilation=m.dilation,
-                               padding=m.padding, stride=m.stride)  # [S, K, L]
-            df = d.reshape(cf, s, d.shape[2], -1)  # [CF', S, O, L]
-            vt = torch.einsum("skl,csol->csko", patches, df)
-            if conv_vt_dtype is not None:
-                vt = vt.to(conv_vt_dtype)
-            o, i, kh, kw = m.weight.shape
-            mixed[prefix + "weight"] = ConvVT(
-                vt.reshape(cf, s, i, kh, kw, o), m.weight.shape)
-            if m.bias is not None:
-                mixed[prefix + "bias"] = df.sum(dim=-1)
+                    mixed[prefix + "bias"] = df.sum(dim=-1)
 
-    # the generic engine for every other parameter (exactness, not speed)
-    params = module_params(module)
-    leftover = {name: p for name, p in params.items() if name not in mixed}
-    if leftover:
-        model_fn = forward_fn(module)
+        # the generic engine for every other parameter (exactness, not speed)
+        params = module_params(module)
+        leftover = {name: p for name, p in params.items() if name not in mixed}
+        if leftover:
+            model_fn = forward_fn(module)
 
-        def model_fn_partial(diff, x):
-            return model_fn({**params, **diff}, x)
+            def model_fn_partial(diff, x):
+                return model_fn({**params, **diff}, x)
 
-        vt_generic = ggn_sqrt_vt(
-            model_fn_partial, loss, leftover, X, y, subsampling=subsampling,
-            mc_samples=mc_samples, key=key, batch_size=batch_size, sample_ids=ids,
-            column_scale=column_scale, deflate_ce_null=deflate_ce_null)
-        mixed.update(vt_generic)
-    return {name: mixed[name] for name in params}
+            vt_generic = ggn_sqrt_vt(
+                model_fn_partial, loss, leftover, X, y, subsampling=subsampling,
+                mc_samples=mc_samples, key=key, batch_size=batch_size, sample_ids=ids,
+                column_scale=column_scale, deflate_ce_null=deflate_ce_null)
+            mixed.update(vt_generic)
+        return {name: mixed[name] for name in params}
