@@ -169,7 +169,21 @@ Phases, each printed as it runs:
     replay of phases 3-15 (:func:`recording_eigh`, which runs the eager
     body once more for what the phases record) is held against its eager
     body: bit-equal, or within :data:`ENTRY_BAR` of it.
-17. The call times of the new entries, the launches of each path (the
+17. **Three-pass products** (:func:`phase_three_pass`):
+    ``precision.matmul``'s ``"high"`` (three TF32 passes) against the f32
+    product, bf16_3x (the JAX package's ``"high"``: three bf16 products of
+    the operands' bf16 parts, f32 sums) and float64 at the strip basis's
+    shapes (:data:`THREE_PASS_SHAPES`: 4608³ with distinct operands and as
+    a squaring, 4608×4608×2400, 2448³ as a squaring, a ``[2,1250,1250]``
+    batch): its error at most twice the f32 product's, and, where
+    the product engages (every side at least ``precision.THREE_PASS_MIN``),
+    its time below the f32 product's (CUDA events, median of 10); the sweep
+    of squares and ``[2, n, n]`` batches (:data:`THREE_PASS_SWEEP`) that
+    places the threshold, each size's times printed and each crossover
+    named; and the N=128 headline and ``eigh_topk`` calls, which reach no
+    ``"high"`` product (``THREE_PASS`` and ``THREE_PASS_DECLINED``
+    unchanged).
+18. The call times of the new entries, the launches of each path (the
     leaf kernel's too), a JSON line of the kernels (the leaf kernel's rows
     by path, :data:`LEAF_ROWS`), the command time, then ``{"ok": true,
     "device": ...}`` last.
@@ -190,6 +204,16 @@ import numpy as np
 
 N = 128
 NUM_CLASSES = 10
+# the three-pass product's shapes on the strip path at N=512 (label, a, b):
+# the root's squarings, a bulk child's panel, the zoom's squarings, a tree
+# level's batch
+THREE_PASS_SHAPES = [("4608^3", (4608, 4608), (4608, 4608)),
+                     ("4608^3 squaring", (4608, 4608), None),
+                     ("4608x4608x2400", (4608, 4608), (4608, 2400)),
+                     ("2448^3 squaring", (2448, 2448), None),
+                     ("[2,1250,1250]", (2, 1250, 1250), (2, 1250, 1250))]
+# the sizes n of the crossover sweep, of squares and of [2, n, n] batches
+THREE_PASS_SWEEP = (512, 768, 1024, 1280, 1536, 1792, 2048, 2448, 3072)
 # the kernels' sources under vivit_tpu_torch/csrc/, built at the start
 KERNEL_SOURCES = ("jacobi", "jacobi_leaf")
 KERNEL_SHAPES = [(37, 32), (36, 32), (13, 32), (16, 48), (32, 64)]
@@ -1592,6 +1616,94 @@ def deterministic_cudnn():
         yield
     finally:
         torch.backends.cudnn.deterministic = saved
+
+
+def phase_three_pass(model):
+    """Phase 17: the three-pass TF32 product against the f32 product and
+    float64 (module docstring); returns the crossovers of the sweep."""
+    import torch
+
+    import vivit_tpu_torch as vtt
+    from vivit_tpu_torch import precision
+    from vivit_tpu_torch.precision import full_f32
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def bf16x3(a, b):
+        """The JAX package's ``"high"`` in the card's terms, for its error."""
+        ha, hb = a.bfloat16(), b.bfloat16()
+        la, lb = (a - ha.float()).bfloat16(), (b - hb.float()).bfloat16()
+        parts = [(ha, lb), (la, hb), (ha, hb)]
+        if a.dim() == 3:
+            return sum(torch.stack([torch.mm(x, y, out_dtype=torch.float32)
+                                    for x, y in zip(p, q)]) for p, q in parts)
+        return sum(torch.mm(x, y, out_dtype=torch.float32) for x, y in parts)
+
+    def operands(a_shape, b_shape):
+        a = torch.randn(a_shape, generator=gen, device="cuda")
+        return a, (a if b_shape is None else torch.randn(b_shape, generator=gen, device="cuda"))
+
+    def timed(a, b):
+        """(f32 ms, three-pass ms), in turns, each the median of 10."""
+        with full_f32():
+            f32 = [cuda_ms(lambda: a @ b, 5) for _ in range(2)]
+            tp = [cuda_ms(lambda: precision.matmul(a, b, "high"), 5) for _ in range(2)]
+        return float(np.median(f32)), float(np.median(tp))
+
+    saved = precision.THREE_PASS_MIN
+    precision.THREE_PASS_MIN = 0  # every product engages: the sweep times both
+    slower = []  # engaged shapes where the three passes lose
+    try:
+        for label, a_shape, b_shape in THREE_PASS_SHAPES:
+            a, b = operands(a_shape, b_shape)
+            ref = a.double() @ b.double()
+            with full_f32():
+                errs = [float(torch.linalg.vector_norm((x.double() - ref).flatten())
+                              / torch.linalg.vector_norm(ref.flatten()))
+                        for x in (a @ b, precision.matmul(a, b, "high"), bf16x3(a, b))]
+            f32_ms, tp_ms = timed(a, b)
+            m, k, n = a.shape[-2], a.shape[-1], b.shape[-1]
+            flops = 2.0 * m * n * k * (a.shape[0] if a.dim() == 3 else 1)
+            print(f"three-pass {label}: error vs float64 {errs[1]:.3e} (f32 {errs[0]:.3e}, "
+                  f"ratio {errs[1] / errs[0]:.3f}; bf16_3x {errs[2]:.3e}); f32 {f32_ms:.4f} ms "
+                  f"({flops / f32_ms / 1e9:.1f} TFLOP/s), three passes {tp_ms:.4f} ms "
+                  f"({flops / tp_ms / 1e9:.1f} TFLOP/s), {f32_ms / tp_ms:.3f}x", flush=True)
+            check(errs[1] <= 2 * errs[0],
+                  f"three-pass {label}: error {errs[1]:.3e}, the f32 product's {errs[0]:.3e}")
+            if min(m, k, n) >= saved and tp_ms >= f32_ms:
+                slower.append(f"{label}: {tp_ms:.4f} ms, f32 {f32_ms:.4f} ms")
+            del a, b, ref
+        crossovers = {}
+        for batch in ((), (2,)):
+            wins = []
+            for n in THREE_PASS_SWEEP:
+                a, b = operands(batch + (n, n), batch + (n, n))
+                f32_ms, tp_ms = timed(a, b)
+                wins.append(tp_ms < f32_ms)
+                print(f"three-pass sweep {list(batch + (n, n))}: f32 {f32_ms:.4f} ms, three "
+                      f"passes {tp_ms:.4f} ms, {f32_ms / tp_ms:.3f}x", flush=True)
+            # the least size from which the three passes win at every larger size swept
+            losing = [n for n, w in zip(THREE_PASS_SWEEP, wins) if not w]
+            crossovers[f"{list(batch + ('n', 'n'))}"] = next(
+                (n for n in THREE_PASS_SWEEP if not losing or n > max(losing)), None)
+    finally:
+        precision.THREE_PASS_MIN = saved
+    print(f"three-pass crossovers: {crossovers}; THREE_PASS_MIN {saved}, THREE_PASS_CHUNK "
+          f"{precision.THREE_PASS_CHUNK}", flush=True)
+    check(not slower, f"three passes slower where they engage: {slower}")
+
+    loss = vtt.CrossEntropyLoss("mean")
+    X, y = port_batch(N)
+    before = (precision.THREE_PASS, precision.THREE_PASS_DECLINED)
+    with deterministic_cudnn():
+        vtt.eigvalsh_structured(model, loss, X, y, eig_backend="dc", **HEADLINE)
+        vtt.eigh_topk(model, loss, X, y, TOP_K, solver="dc", **HEADLINE)
+    torch.cuda.synchronize()
+    after = (precision.THREE_PASS, precision.THREE_PASS_DECLINED)
+    print(f"three-pass counters over the N={N} headline and eigh_topk: {before} -> {after}",
+          flush=True)
+    check(after == before, f"an N={N} call reached a \"high\" product: {before} -> {after}")
+    return crossovers
 
 
 def generic_model():
@@ -3363,6 +3475,8 @@ def main():
                                                       "large": gram_large})
         phase_graphs(jc)
         phase_entry_graphs(jc)
+        release_graphs("the three-pass phase")
+        phase_three_pass(port_model())
     except SmokeFailure as exc:
         print(f"chip_smoke: FAIL: {exc}", file=sys.stderr)
         return 1

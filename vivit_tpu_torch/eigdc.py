@@ -1,8 +1,8 @@
 """Spectral divide-and-conquer eigensolver (counterpart of
 ``vivit_tpu/eigdc.py``).
 
-The solver for the symmetric PSD Gram matrices of this library, in full
-f32, built from matrix products:
+The solver for the symmetric PSD Gram matrices of this library, in f32,
+built from matrix products:
 
 1. **De-skew** ``B = (x + f₃₂(x) + f₁₀₂₄(x))/3`` applied spectrally to
    ``H/s`` by repeated squaring (``f_d(x) = 1−(1−x)^d``): a monotone map that
@@ -70,10 +70,16 @@ to the call, which reads it after the replay (:func:`_deferred`).
 
 Random draws come from one ``torch.Generator`` on the matrix's device
 (seed 0 unless one is given), so results match the JAX package to
-tolerance, not bit for bit.  All matmuls run in full f32, including those
-the JAX package demotes to ``HIGH`` on the strip path or under a precision
-knob.  :func:`eigh_dc` takes every tuning knob of the JAX package's, with
-its defaults, and resolves the unset ones per mode and path as it does:
+tolerance, not bit for bit.  The basis products take the precision the JAX
+package gives them: at ``"high"`` (its bf16_3x, the strip path's default) a
+product of every side ≥ ``precision.THREE_PASS_MIN`` runs as three TF32
+passes (:func:`vivit_tpu_torch.precision.matmul`), within twice the f32
+product's error, finer than bf16_3x; every other product, the polish's and
+the guard's included, runs in full f32.  The chain path's defaults give no
+``"high"``, and the JAX package's products at ``HIGH`` whatever the knobs
+say (KPM, the sign's and the orthonormalization's first stages) take
+``"high"`` here only with the basis knob.  :func:`eigh_dc` takes every tuning knob of the JAX package's,
+with its defaults, and resolves the unset ones per mode and path as it does:
 the basis knobs into one dict (:func:`_make_cfg`, the JAX key set), the
 polish knobs into another (:func:`_polish`).  Besides the two default
 bases, the knobs reach the recursive chain (``ladder=False``) and the
@@ -94,6 +100,7 @@ from vivit_tpu_torch.eig import no_trip_info
 from vivit_tpu_torch.kernels import jacobi
 from vivit_tpu_torch.kernels.jacobi import batched_eigh
 from vivit_tpu_torch.precision import full_f32
+from vivit_tpu_torch.precision import matmul as _mm
 from vivit_tpu_torch.utils import graphs, trace
 
 # polar-express degree-5 coefficients (slope 3.44 per step)
@@ -107,7 +114,8 @@ _STRIP_MIN = 1536
 # the guard's trips: verdicts past the threshold read on the host, each a
 # rerun of the solve on the vendor's (see the module docstring)
 TRIPS = 0
-# the JAX package's precision names; the port runs every one in full f32
+# the JAX package's precision names: at "high" a large basis product runs as
+# three TF32 passes (:func:`vivit_tpu_torch.precision.matmul`), else full f32
 _PRECISIONS = (None, "highest", "high")
 
 
@@ -133,17 +141,19 @@ def _power_norm(A, gen, iters: int = 14):
     return torch.linalg.vector_norm(A @ v, dim=(-2, -1)) * 1.05 + 1e-30
 
 
-def _sign_px(X, iters_px: int, iters_ns: int):
+def _sign_px(X, iters_px: int, iters_ns: int, prec=None):
     """Matrix sign of symmetric ``X`` with spectrum in ~[-1, 1]: two
     Newton-Schulz steps (stable for |x| ≤ √3), then polar-express, then
-    Newton-Schulz polish."""
+    Newton-Schulz polish.  Every product at ``prec``: the JAX package runs
+    the first two stages at ``HIGH`` whatever ``prec`` says, the port only
+    where the basis knob is ``"high"``."""
     for _ in range(2):
-        X = 1.5 * X - 0.5 * ((X @ X) @ X)
+        X = 1.5 * X - 0.5 * _mm(_mm(X, X, prec), X, prec)
     for _ in range(iters_px):
-        X2 = X @ X
-        X = _PX_A * X + X2 @ (_PX_B * X + _PX_C * (X2 @ X))
+        X2 = _mm(X, X, prec)
+        X = _PX_A * X + _mm(X2, _PX_B * X + _PX_C * _mm(X2, X, prec), prec)
     for _ in range(iters_ns):
-        X = 1.5 * X - 0.5 * ((X @ X) @ X)
+        X = 1.5 * X - 0.5 * _mm(_mm(X, X, prec), X, prec)
     return X
 
 
@@ -154,23 +164,25 @@ def _holder_norm(Y):
     return (torch.sqrt(c * r) + 1e-30)[..., None, None]
 
 
-def _orth_px(Y, iters_px: int = 8, iters_ns: int = 3):
-    """Panel polar-orthonormalization (tolerates rank deficiency)."""
+def _orth_px(Y, iters_px: int = 8, iters_ns: int = 3, prec=None):
+    """Panel polar-orthonormalization (tolerates rank deficiency); every
+    product at ``prec``, as in :func:`_sign_px`."""
     Y = Y / _holder_norm(Y)
     for _ in range(iters_px):
-        G = _t(Y) @ Y
-        Y = _PX_A * Y + Y @ (_PX_B * G + _PX_C * (G @ G))
+        G = _mm(_t(Y), Y, prec)
+        Y = _PX_A * Y + _mm(Y, _PX_B * G + _PX_C * _mm(G, G, prec), prec)
     for _ in range(iters_ns):
-        Y = 1.5 * Y - 0.5 * (Y @ (_t(Y) @ Y))
+        Y = 1.5 * Y - 0.5 * _mm(Y, _mm(_t(Y), Y, prec), prec)
     return Y
 
 
-def _deskew(H, s, gen, terms: int = 3):
+def _deskew(H, s, gen, terms: int = 3, prec=None):
     """``(x + f₃₂(x) + f₁₀₂₄(x))/3`` applied spectrally to ``H/s``; with
     ``terms=4``, ``(x + f₃₂ + f₁₀₂₄ + f₃₂₇₆₈)/4`` (five more squarings),
     which lowers the resolvable floor from ~1.1e-4·λmax to ~4.7e-6·λmax.
     Four terms only at the root: a zoom link's compression noise, ~3e-3 of
-    its band top, overflows f32 in ``(1+3e-3)^32768``."""
+    its band top, overflows f32 in ``(1+3e-3)^32768``.  The squarings run
+    at ``prec``."""
     I = _eye(H.shape[-1], H)
     s = s[..., None, None]
     # guard shift: f32-noise-negative eigenvalues must not blow up ^1024
@@ -179,31 +191,33 @@ def _deskew(H, s, gen, terms: int = 3):
     nx = _power_norm(X, gen)
     X = X / torch.where(nx > 1.15, nx, torch.ones_like(nx))[..., None, None]
     for _ in range(5):
-        X = X @ X  # (1-x)^32
+        X = _mm(X, X, prec)  # (1-x)^32
     f32_ = I - X
     for _ in range(5):
-        X = X @ X  # (1-x)^1024
+        X = _mm(X, X, prec)  # (1-x)^1024
     if terms == 3:
         return (H / s + f32_ + (I - X)) / 3.0
     f1024 = I - X
     for _ in range(5):
-        X = X @ X  # (1-x)^32768
+        X = _mm(X, X, prec)  # (1-x)^32768
     return (H / s + f32_ + f1024 + (I - X)) / 4.0
 
 
-def _kpm_cdf(B, gen, degree: int = 64, probes: int = 8):
+def _kpm_cdf(B, gen, degree: int = 64, probes: int = 8, prec=None):
     """Jackson-damped KPM eigenvalue-count CDF of ``B [b, k, k]`` on
-    [-0.05, 1.05]: ``(grid [G], cdf [b, G])``, ``cdf`` monotone."""
+    [-0.05, 1.05]: ``(grid [G], cdf [b, G])``, ``cdf`` monotone.  The
+    products with the ``probes`` columns run at ``prec``, as the JAX
+    package's at ``HIGH``: too thin for three passes, they stay f32."""
     b, k, _ = B.shape
     lo, hi = -0.05, 1.05
     c, h = (hi + lo) / 2.0, (hi - lo) / 2.0 * 1.02
     Z = (torch.randint(0, 2, (b, k, probes), generator=gen, device=B.device)
          .to(_F32) * 2.0 - 1.0)
-    T1 = (B @ Z - c * Z) / h
+    T1 = (_mm(B, Z, prec) - c * Z) / h
     mus = [(Z * Z).sum(dim=(-2, -1)) / probes, (Z * T1).sum(dim=(-2, -1)) / probes]
     Tm1, T = Z, T1
     for _ in range(degree - 1):
-        Tn = 2.0 * (B @ T - c * T) / h - Tm1
+        Tn = 2.0 * (_mm(B, T, prec) - c * T) / h - Tm1
         mus.append((Z * Tn).sum(dim=(-2, -1)) / probes)
         Tm1, T = T, Tn
     mu = torch.stack(mus, dim=-1)  # [b, degree+1]
@@ -236,16 +250,16 @@ def _clip(x, lo, hi):
     return torch.minimum(torch.maximum(x, lo), hi)
 
 
-def _split(B, count, gen, sign_iters, kc: int, kpm_degree: int):
+def _split(B, count, gen, sign_iters, kc: int, kpm_degree: int, prec=None):
     """One batched D&C split of de-skewed nodes ``B [b, k, k]`` with valid
     counts ``count [b]``.
 
     Returns ``(P, W, PW, r_below)``: the projector below ``σ``, the shared
     range-finder panel ``W = B Ω [b, k, kc]``, ``P W``, and the valid count
-    below ``σ``.
+    below ``σ``.  KPM and the sign run at ``prec``, the panels in full f32.
     """
     b, k, _ = B.shape
-    grid, cdf = _kpm_cdf(B, gen, degree=kpm_degree)
+    grid, cdf = _kpm_cdf(B, gen, degree=kpm_degree, prec=prec)
     target = (k - count) + count * 0.5  # [b]
     # σ at the lowest-density point of the rank window around the target: a σ
     # inside a near-degenerate cluster would duplicate it across children
@@ -267,7 +281,7 @@ def _split(B, count, gen, sign_iters, kc: int, kpm_degree: int):
     I = _eye(k, B)
     Xs = B - sigma[:, None, None] * I
     nrm = _power_norm(Xs, gen)
-    U = _sign_px(Xs / nrm[:, None, None], *sign_iters)
+    U = _sign_px(Xs / nrm[:, None, None], *sign_iters, prec)
     P = 0.5 * (I - U)
     trace = torch.diagonal(P, dim1=-2, dim2=-1).sum(dim=-1)
     r_below = torch.round(trace) - (k - count)
@@ -278,8 +292,8 @@ def _split(B, count, gen, sign_iters, kc: int, kpm_degree: int):
     return P, W, PW, r_below
 
 
-def _compress(Y, M):
-    C = _t(Y) @ (M @ Y)
+def _compress(Y, M, prec=None):
+    C = _mm(_t(Y), _mm(M, Y, prec), prec)
     return 0.5 * (C + _t(C))
 
 
@@ -301,9 +315,14 @@ def _ladder(H, count, gen, cfg):
     tree (de-skewed when still wider than ``base``); without, it is solved
     by one exact eigh.  Levels stop when the node size reaches ``base``, and
     the leaves are solved in one batch.  Counts stay device tensors: the
-    loop's structure depends on ``n`` and ``cfg`` alone.
+    loop's structure depends on ``n`` and ``cfg`` alone.  The products run
+    at the JAX package's precisions: the basis at ``basis_prec``, the
+    de-skews at ``basis_prec or deskew_prec``, the lifts at ``basis_prec or
+    q_prec``.
     """
     n, base = H.shape[0], cfg["base"]
+    prec = cfg["basis_prec"]
+    dsk, qp = prec or cfg["deskew_prec"], prec or cfg["q_prec"]
     Hz, lift_z, count_z = H, None, count  # lift None = identity at the root
     TB = TC = TL = None  # tree nodes [b, m, m], counts [b], lifts [b, n, m]
     q_parts, m_parts = [], []
@@ -313,7 +332,7 @@ def _ladder(H, count, gen, cfg):
         zoom_live = Hz is not None
         if zoom_live:
             terms = (cfg["deskew_terms"] or 3) if level == 0 else 3
-            Bz = _deskew(Hz, _power_norm(Hz, gen), gen, terms)
+            Bz = _deskew(Hz, _power_norm(Hz, gen), gen, terms, dsk)
             nodes = Bz[None] if TB is None else torch.cat([Bz[None], TB])
             counts_all = (count_z[None] if TC is None
                           else torch.cat([count_z[None], TC]))
@@ -321,21 +340,21 @@ def _ladder(H, count, gen, cfg):
             nodes, counts_all = TB, TC
         bsz = nodes.shape[0]
         sign_it = cfg["sign_root"] if level == 0 else cfg["sign"]
-        P, W, PW, r = _split(nodes, counts_all, gen, sign_it, kc, cfg["kpm"])
+        P, W, PW, r = _split(nodes, counts_all, gen, sign_it, kc, cfg["kpm"], prec)
 
         # panels: the zoom node's bottom is the H-space λ-weighted capture
         if zoom_live:
             Om = _randn(gen, (m, kc), H) / np.sqrt(m)
-            Wz = P[0] @ (Hz @ (P[0] @ Om))
+            Wz = _mm(P[0], _mm(Hz, _mm(P[0], Om, prec), prec), prec)
             bottoms = torch.cat([Wz[None], PW[1:]])
         else:
             bottoms = PW
-        Y = _orth_px(torch.cat([bottoms, W - PW]), *cfg["orth"])
+        Y = _orth_px(torch.cat([bottoms, W - PW]), *cfg["orth"], prec)
         Yb, Yt = Y[:bsz], Y[bsz:]
 
         # compressions: the zoom bottom against Hz, everything else its B
         mats_b = torch.cat([Hz[None], nodes[1:]]) if zoom_live else nodes
-        Cb, Ct = _compress(Yb, mats_b), _compress(Yt, nodes)
+        Cb, Ct = _compress(Yb, mats_b, prec), _compress(Yt, nodes, prec)
 
         if zoom_live:
             r0 = _clip(r[0], (count_z - kc).clamp(min=0), count_z)
@@ -346,9 +365,11 @@ def _ladder(H, count, gen, cfg):
             if lift_z is None:  # root level: the lifts are the panels
                 lz_next, lifts_new = Yb[0], Yt[0:1]
             else:
-                lz_next, lifts_new = lift_z @ Yb[0], (lift_z @ Yt[0])[None]
+                lz_next = _mm(lift_z, Yb[0], qp)
+                lifts_new = _mm(lift_z, Yt[0], qp)[None]
             if TL is not None:
-                TL_next = torch.cat([lifts_new, TL @ Yb[1:], TL @ Yt[1:]])
+                TL_next = torch.cat([lifts_new, _mm(TL, Yb[1:], qp),
+                                     _mm(TL, Yt[1:], qp)])
                 TB_next = torch.cat([Ct[0:1], Cb[1:], Ct[1:]])
             else:
                 TL_next, TB_next = lifts_new, Ct[0:1]
@@ -356,7 +377,7 @@ def _ladder(H, count, gen, cfg):
             rt = _clip(r, (counts_all - kc).clamp(min=0),
                        counts_all.clamp(max=kc))
             TC_next = torch.cat([rt, counts_all - rt])
-            TL_next = torch.cat([TL @ Yb, TL @ Yt])
+            TL_next = torch.cat([_mm(TL, Yb, qp), _mm(TL, Yt, qp)])
             TB_next = torch.cat([Cb, Ct])
 
         if zoom_live:
@@ -367,14 +388,14 @@ def _ladder(H, count, gen, cfg):
                 # top unless the leaf solve takes it directly
                 tail = Cb[0]
                 if kc > base:
-                    tail = _deskew(tail, _power_norm(tail, gen), gen)
+                    tail = _deskew(tail, _power_norm(tail, gen), gen, prec=dsk)
                 TB_next = torch.cat([TB_next, tail[None]])
                 TC_next = torch.cat([TC_next, rz_next[None]])
                 TL_next = torch.cat([TL_next, lz_next[None]])
                 Hz = lift_z = None
             else:
                 _, Vz = batched_eigh(Cb[0][None])
-                q_parts.append(lz_next @ Vz[0])
+                q_parts.append(_mm(lz_next, Vz[0], qp))
                 m_parts.append(_leaf_masks(kc, rz_next[None])[0])
                 Hz = lift_z = None
         TB, TC, TL = TB_next, TC_next, TL_next
@@ -383,7 +404,7 @@ def _ladder(H, count, gen, cfg):
         level += 1
         if m <= base:
             _, evecs = batched_eigh(TB)  # [b, m, m] ascending
-            lifted = TL @ evecs
+            lifted = _mm(TL, evecs, qp)
             q_parts.append(lifted.permute(1, 0, 2).reshape(n, -1))
             m_parts.append(_leaf_masks(m, TC).reshape(-1))
             return torch.cat(q_parts, dim=1), torch.cat(m_parts)
@@ -396,19 +417,23 @@ def _tree(B, counts, lifts, gen, cfg):
     ``lifts [b, n0, k]`` from the subtree root space.  Every level splits all
     nodes in one batch (``cfg``'s ``sign``, ``orth`` and ``kpm_tree``) until
     they fit ``base``.  Returns ``(masks [L, kb], Q [L, n0, kb])``: the
-    leaves' validity and lifted eigenvectors (ascending per leaf).
+    leaves' validity and lifted eigenvectors (ascending per leaf).  The
+    splits run at ``basis_prec``, the lifts at ``basis_prec or q_prec``, the
+    leaves' lift in full f32, as in the JAX package.
     """
+    prec = cfg["basis_prec"]
+    qp = prec or cfg["q_prec"]
     k = B.shape[-1]
     while k > cfg["base"]:
         kc = k // 2 + _margin(k)
         bsz = B.shape[0]
-        P, W, PW, r = _split(B, counts, gen, cfg["sign"], kc, cfg["kpm_tree"])
+        P, W, PW, r = _split(B, counts, gen, cfg["sign"], kc, cfg["kpm_tree"], prec)
         r = _clip(r, (counts - kc).clamp(min=0), counts.clamp(max=kc))
-        Y = _orth_px(torch.cat([PW, W - PW]), *cfg["orth"])
+        Y = _orth_px(torch.cat([PW, W - PW]), *cfg["orth"], prec)
         Ym, Yp = Y[:bsz], Y[bsz:]
-        B = torch.cat([_compress(Ym, B), _compress(Yp, B)])
+        B = torch.cat([_compress(Ym, B, prec), _compress(Yp, B, prec)])
         counts = torch.cat([r, counts - r])
-        lifts = torch.cat([lifts @ Ym, lifts @ Yp])
+        lifts = torch.cat([_mm(lifts, Ym, qp), _mm(lifts, Yp, qp)])
         k = kc
     _, evecs = batched_eigh(B)
     return _leaf_masks(k, counts), lifts @ evecs
@@ -434,35 +459,38 @@ def _basis(H, count, gen, depth: int, cfg):
     The recursion: de-skew, one split, a λ-weighted capture of the bottom
     re-compressed against ``H`` (recursed into while ``depth + 1 < chain``
     and its capacity exceeds ``1.5·base``, else solved exactly), and a
-    balanced tree on the top.
+    balanced tree on the top.  Precisions as in :func:`_ladder`.
     """
     n = H.shape[0]
     if depth == 0 and cfg["strip"] != 0 and n >= (cfg["strip"] or _STRIP_MIN):
         return _strip_basis(H, count, gen, cfg)
     if cfg["ladder"] and depth == 0 and (n < 2048 or cfg["deskew_terms"] is not None):
         return _ladder(H, count, gen, cfg)
+    prec = cfg["basis_prec"]
+    qp = prec or cfg["q_prec"]
     terms = 3 if depth > 0 else cfg["deskew_terms"] or (4 if n >= 2048 else 3)
-    B = _deskew(H, _power_norm(H, gen), gen, terms)
+    B = _deskew(H, _power_norm(H, gen), gen, terms, prec or cfg["deskew_prec"])
     sign = cfg["sign_root"] if depth == 0 else cfg["sign"]
     kc = n // 2 + _margin(n)
-    P, W, PW, r = (x[0] for x in _split(B[None], count[None], gen, sign, kc, cfg["kpm"]))
+    P, W, PW, r = (x[0] for x in _split(B[None], count[None], gen, sign, kc,
+                                        cfg["kpm"], prec))
     r = _clip(r, (count - kc).clamp(min=0), count)
     r_z = r.clamp(max=kc)  # zoom capacity clip (drops the sub-atol tail)
 
     # bottom: λ-weighted capture (one H application) and the zoom
     Om = _randn(gen, (n, kc), H) / np.sqrt(n)
-    Yz = _orth_px(P @ (H @ (P @ Om)), *cfg["orth"])
-    Hz = _compress(Yz, H)
+    Yz = _orth_px(_mm(P, _mm(H, _mm(P, Om, prec), prec), prec), *cfg["orth"], prec)
+    Hz = _compress(Yz, H, prec)
     if depth + 1 < cfg["chain"] and kc > int(1.5 * cfg["base"]):
         Qz, mz = _basis(Hz, r_z, gen, depth + 1, cfg)
-        Qz = Yz @ Qz
+        Qz = _mm(Yz, Qz, qp)
     else:
         _, Vz = batched_eigh(Hz[None])
-        Qz, mz = Yz @ Vz[0], _leaf_masks(kc, r_z[None])[0]
+        Qz, mz = _mm(Yz, Vz[0], qp), _leaf_masks(kc, r_z[None])[0]
 
     # top: balanced subtree on the de-skewed complement
-    Yp = _orth_px(W - PW, *cfg["orth"])
-    Qt, mt = _flat_leaves(*_tree(_compress(Yp, B)[None], (count - r)[None],
+    Yp = _orth_px(W - PW, *cfg["orth"], prec)
+    Qt, mt = _flat_leaves(*_tree(_compress(Yp, B, prec)[None], (count - r)[None],
                                  Yp[None], gen, cfg))
     return torch.cat([Qz, Qt], dim=1), torch.cat([mz, mt])
 
@@ -476,11 +504,13 @@ def _strip_basis(H, count, gen, cfg):
     rescale restores the ratio: strip the sparse top ~6% at a KPM-certified
     low-density ``σ`` (its own balanced tree), project the bulk exactly
     (``H₁ = P H P``, full size) and recurse into it (:func:`_basis`), which
-    renormalizes by ``H₁``'s own top.
+    renormalizes by ``H₁``'s own top.  Precisions as in :func:`_ladder`;
+    the top child's panel ``B Ω`` and its projection in full f32.
     """
     n = H.shape[0]
-    B = _deskew(H, _power_norm(H, gen), gen)
-    grid, cdf = _kpm_cdf(B[None], gen, degree=cfg["kpm"])
+    prec = cfg["basis_prec"]
+    B = _deskew(H, _power_norm(H, gen), gen, prec=prec or cfg["deskew_prec"])
+    grid, cdf = _kpm_cdf(B[None], gen, degree=cfg["kpm"], prec=prec)
     cdf = cdf[0]
     kt = n // 8 + _margin(n // 8)  # static top-child capacity
     target = count - n / 16.0 + (n - count)  # CDF rank below the strip
@@ -495,19 +525,19 @@ def _strip_basis(H, count, gen, cfg):
 
     I = _eye(n, H)
     Xs = B - sigma * I
-    P = 0.5 * (I - _sign_px(Xs / _power_norm(Xs, gen), *cfg["sign_root"]))
+    P = 0.5 * (I - _sign_px(Xs / _power_norm(Xs, gen), *cfg["sign_root"], prec))
     r = torch.round(torch.trace(P)) - (n - count)  # valid count below σ
     r = _clip(r, count - kt + _margin(kt) // 2, count)
 
     # top child: de-skewed subtree on the complement (skinny panel)
     W = B @ (_randn(gen, (n, kt), H) / np.sqrt(n))
-    Yp = _orth_px(W - P @ W, *cfg["orth"])
-    Qt, mt = _flat_leaves(*_tree(_compress(Yp, B)[None], (count - r)[None],
+    Yp = _orth_px(W - P @ W, *cfg["orth"], prec)
+    Qt, mt = _flat_leaves(*_tree(_compress(Yp, B, prec)[None], (count - r)[None],
                                  Yp[None], gen, cfg))
 
     # bulk child: exact full-size spectral projection, renormalized by its
     # own top inside the recursion
-    H1 = P @ (H @ P)
+    H1 = _mm(P, _mm(H, P, prec), prec)
     Qz, mz = _basis(0.5 * (H1 + H1.T), r, gen, 1, cfg)
     return torch.cat([Qz, Qt], dim=1), torch.cat([mz, mt])
 
@@ -593,8 +623,7 @@ def _make_cfg(base=160, chain=6, sign_root=(9, 4), sign=(9, 4), orth=(8, 3),
     orthonormalization, KPM degree (``kpm_tree`` for the subtree splits,
     ``kpm`` when unset), de-skew terms at the root, strip threshold, the
     ladder and its tail merge.  The precision knobs must be one of
-    ``None``, ``"highest"`` and ``"high"``; every matmul runs in full f32
-    whatever they say."""
+    ``None``, ``"highest"`` and ``"high"`` (see :func:`eigh_dc`)."""
     for name, prec in (("basis_prec", basis_prec), ("q_prec", q_prec),
                        ("deskew_prec", deskew_prec)):
         if prec not in _PRECISIONS:
@@ -680,9 +709,14 @@ def eigh_dc(
       polish (``None``: the mode's and path's default), ``bottom`` sizing
       the bottom block and, at ``m ≥ 1536``, the top block.
     * ``basis_prec``, ``q_prec``, ``deskew_prec``: ``None``, ``"highest"``
-      or ``"high"``, anything else raises.  By the port's precision mapping
-      ``"high"`` (the TPU's bf16_3x) runs in full f32, so a demotion the JAX
-      package makes gives the port's ``"highest"`` result.
+      or ``"high"``, anything else raises.  They reach the basis's products
+      as in the JAX package (the basis's at ``basis_prec``, its de-skews at
+      ``basis_prec or deskew_prec``, its lifts at ``basis_prec or q_prec``;
+      the strip path's unset ones at ``"high"``, ``"high"`` and
+      ``"highest"``), and ``"high"`` runs a product of every side ≥
+      ``precision.THREE_PASS_MIN`` as three TF32 passes, ~2^-21 relative
+      (:func:`vivit_tpu_torch.precision.matmul`).  The polish runs in full
+      f32 whatever ``q_prec`` says.
 
     The random draws come from a generator on ``H``'s device seeded with the
     int ``key`` (default 0).  On a CUDA tensor below the strip the first
@@ -719,7 +753,9 @@ def eigh_dc(
         if strip_on:
             # the strip's chain must end in wide exact leaves, or a zoom
             # link's capacity clip loses the band's smallest carriers; the
-            # JAX package's measured strip precisions (no-ops here)
+            # JAX package's measured strip precisions: the basis's large
+            # products, its lifts too, as three TF32 passes; the polish's Q
+            # carriers in full f32
             base = max(base, 320, n // 9)
             if deskew_prec is None:
                 deskew_prec = "high"
