@@ -166,14 +166,14 @@ def tracked(monkeypatch):
     monkeypatch.setattr(graphs, "_CACHE", {})
     monkeypatch.setattr(graphs, "_capture", _Tracked)
     monkeypatch.setattr(_Tracked, "runs", [])
-    monkeypatch.setattr(graphs, "captured", lambda X, mc, solver, side: mc == 0)
+    monkeypatch.setattr(graphs, "captured", lambda X, mc, solver, side, *_: mc == 0)
     return _Tracked.runs
 
 
 def _eagerly(monkeypatch, fn):
     """``fn()`` on the eager route (the route rule says no)."""
     with monkeypatch.context() as m:
-        m.setattr(graphs, "captured", lambda X, mc, solver, side: False)
+        m.setattr(graphs, "captured", lambda X, mc, solver, side, *_: False)
         return fn()
 
 
@@ -532,9 +532,9 @@ def test_entries_ask_the_route_rule(monkeypatch, form):
     monkeypatch.setattr(graphs, "_CACHE", {})
     asked, rule = [], graphs.captured
 
-    def spy(X, mc, solver, side):
+    def spy(X, mc, solver, side, *rest):
         asked.append((mc, solver, None if mc else side()))
-        return rule(X, mc, solver, side)
+        return rule(X, mc, solver, side, *rest)
 
     monkeypatch.setattr(graphs, "captured", spy)
     module, X, y = _problem()

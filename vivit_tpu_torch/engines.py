@@ -5,15 +5,17 @@ Every entry point takes the model as either
 
 * an ``nn.Module`` → the structured engine
   (:func:`vivit_tpu_torch.structured.structured_ggn_sqrt_vt`:
-  ``engine="tapped"`` by default, Kronecker-factored Linear blocks,
-  patch-product Conv2d blocks, the generic engine for every other
-  parameter), its parameters its own; or
+  ``engine="tapped"`` by default, Kronecker-factored Linear blocks (2-D
+  inputs, and token-shaped ones kept factored), patch-product Conv2d
+  blocks, LayerNorm and batch-broadcast parameters from the taps, the
+  generic engine for every other parameter), its parameters its own; or
 * a plain ``model_fn(params, X)`` with a ``params`` dict ``{name: Tensor}``
   → the generic engine (:func:`vivit_tpu_torch.ggn.ggn_sqrt_vt`).
 
 The ``*_any`` helpers make the Gram, back-projection and ``Vᵀg`` algebra
 agnostic to which engine built the ``Vᵀ`` dict (mixed dicts carry
 :class:`~vivit_tpu_torch.structured.DenseFactor` /
+:class:`~vivit_tpu_torch.structured.TokenFactor` /
 :class:`~vivit_tpu_torch.tapped.ConvVT` leaves, generic ones tensors).
 """
 
@@ -87,10 +89,10 @@ def build_vt(model, loss, params, X, y, *, engine: str = "tapped",
 
 def vt_is_mixed(vt: Dict[str, Any]) -> bool:
     """Whether the ``Vᵀ`` dict carries factored (non-tensor) leaves."""
-    from vivit_tpu_torch.structured import DenseFactor
+    from vivit_tpu_torch.structured import DenseFactor, TokenFactor
     from vivit_tpu_torch.tapped import ConvVT
 
-    return any(isinstance(leaf, (DenseFactor, ConvVT)) for leaf in vt.values())
+    return any(isinstance(leaf, (DenseFactor, TokenFactor, ConvVT)) for leaf in vt.values())
 
 
 def gram_any(vt, paths=None, precision=None) -> torch.Tensor:

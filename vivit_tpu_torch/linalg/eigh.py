@@ -118,7 +118,8 @@ def eigh_topk(
         conv_vt_dtype=conv_vt_dtype)
     return graphs.entry(cache_key, body, X, y, params, lambda: graphs.captured(
         X, mc_samples, solver,
-        lambda: graphs.gram_side(model_fn, fwd_params, X, subsampling, deflate_ce_null)))
+        lambda: graphs.gram_side(model_fn, fwd_params, X, subsampling, deflate_ce_null),
+        lambda: graphs.param_count(fwd_params)))
 
 
 def _gram_eigh_all(model, loss, X, y, *, params, group_paths, subsampling, mc_samples,

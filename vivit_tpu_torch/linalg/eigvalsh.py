@@ -105,7 +105,8 @@ def eigvalsh(
         deflate_ce_null=deflate_ce_null)
     return graphs.entry(cache_key, body, X, y, params, lambda: graphs.captured(
         X, mc_samples, eig_backend,
-        lambda: graphs.gram_side(model_fn, params, X, subsampling, deflate_ce_null)))
+        lambda: graphs.gram_side(model_fn, params, X, subsampling, deflate_ce_null),
+        lambda: graphs.param_count(params)))
 
 
 class EigvalshComputation:

@@ -142,4 +142,5 @@ def stage1(comp, name, settings, X, y, params, group_paths, body, solver):
                            groups=group_paths, **{**settings, "precision": comp._precision})
     return graphs.stage(key, body, X, y, params, lambda: graphs.captured(
         X, mc_samples, solver, lambda: graphs.gram_side(
-            model_fn, fwd_params, X, subsampling, settings["deflate_ce_null"])))
+            model_fn, fwd_params, X, subsampling, settings["deflate_ce_null"]),
+        lambda: graphs.param_count(fwd_params)))

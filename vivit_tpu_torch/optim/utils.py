@@ -195,4 +195,5 @@ def topk_entry(name, finish, model, loss, X, y, k, *, params, paths, subsampling
         **settings)
     return graphs.entry(cache_key, body, X, y, params, lambda: graphs.captured(
         X, mc_samples_ggn, solver,
-        lambda: graphs.gram_side(model_fn, fwd_params, X, subsampling_ggn, deflate_ce_null)))
+        lambda: graphs.gram_side(model_fn, fwd_params, X, subsampling_ggn, deflate_ce_null),
+        lambda: graphs.param_count(fwd_params)))

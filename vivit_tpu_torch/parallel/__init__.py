@@ -190,15 +190,17 @@ def _mask_vt(vt, mask):
 def _scale_cols_mixed(vt, scale):
     """Scale the columns of a *mixed* ``Vᵀ`` dict by a scalar or a
     per-sample ``[S]`` vector: a :class:`DenseFactor` on ``δ`` (``z`` is
-    shared across columns), a :class:`ConvVT` block in f32 and cast back to
-    its dtype, a tensor leaf over its trailing axes."""
-    from vivit_tpu_torch.structured import DenseFactor
+    shared across columns), likewise a :class:`TokenFactor`, a
+    :class:`ConvVT` block in f32 and cast back to its dtype, a tensor leaf
+    over its trailing axes."""
+    from vivit_tpu_torch.structured import DenseFactor, TokenFactor
     from vivit_tpu_torch.tapped import ConvVT
 
     out = {}
     for p, leaf in vt.items():
-        if isinstance(leaf, DenseFactor):
-            out[p] = DenseFactor(z=leaf.z, delta=leaf.delta * _per_sample(scale, leaf.delta.dim()))
+        if isinstance(leaf, (DenseFactor, TokenFactor)):
+            out[p] = type(leaf)(z=leaf.z,
+                                delta=leaf.delta * _per_sample(scale, leaf.delta.dim()))
         elif isinstance(leaf, ConvVT):
             f = _per_sample(scale, leaf.vt.dim())
             out[p] = ConvVT((leaf.vt.float() * f).to(leaf.vt.dtype), leaf.kernel_shape)
@@ -313,12 +315,13 @@ def _structured_gram_dp(vt, rescale, group, generic_precision, paths=None):
 
     Dense ``(z, δ)`` factors are small: one ``all_gather`` each, ``δ``
     rescaled, the block ``(ZZᵀ)∘(ΔΔᵀ)`` formed in full f32 on every rank;
-    generic leaves and the materialized conv blocks (:class:`ConvVT`, big)
-    go through :func:`sharded_gram` with the operand dtype
-    ``generic_precision``.  Column order ``(rank, cf, n_local)`` on both
-    parts; ``paths`` restricts the leaves (block-diagonal groups).
+    generic leaves, the materialized conv blocks (:class:`ConvVT`, big) and
+    the token blocks (:class:`TokenFactor`, expanded) go through
+    :func:`sharded_gram` with the operand dtype ``generic_precision``.
+    Column order ``(rank, cf, n_local)`` on both parts; ``paths`` restricts
+    the leaves (block-diagonal groups).
     """
-    from vivit_tpu_torch.structured import DenseFactor
+    from vivit_tpu_torch.structured import DenseFactor, TokenFactor
     from vivit_tpu_torch.tapped import ConvVT
 
     _, k = _world(group)
@@ -336,6 +339,8 @@ def _structured_gram_dp(vt, rescale, group, generic_precision, paths=None):
             gram = g if gram is None else gram + g
         elif isinstance(leaf, ConvVT):
             generic.append(leaf._flat() * rescale)
+        elif isinstance(leaf, TokenFactor):
+            generic.append(leaf.expand().reshape(leaf.num_cols, -1) * rescale)
         else:
             generic.append(leaf.reshape(leaf.shape[0] * leaf.shape[1], -1) * rescale)
     if generic:

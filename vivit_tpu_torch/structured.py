@@ -3,10 +3,23 @@
 ``nn.Module`` (tapped or vjp engine), the mixed Gram, back-projection,
 ``Vᵀ``-products, the eigenvalue pipeline and the damped Newton step.
 
-For a Linear weight the ``Vᵀ`` column of sample ``n``, factor ``c`` is the
-outer product ``δ_{c,n} ⊗ z_n``, so its Gram block is the Hadamard product
-``(Z Zᵀ) ∘ (Δ Δᵀ)`` and is never materialized (:class:`DenseFactor`).
-Gram matrices use the flat column index ``c·S + n`` (factor-major).
+The factored leaves of a mixed ``Vᵀ`` dict, beside plain tensors
+``[CF, S, *param.shape]`` and the conv blocks (:class:`~vivit_tpu_torch.tapped.ConvVT`):
+
+* :class:`DenseFactor`, a Linear weight with a 2-D input: the ``Vᵀ`` column
+  of sample ``n``, factor ``c`` is the outer product ``δ_{c,n} ⊗ z_n``, so
+  its Gram block is the Hadamard product ``(Z Zᵀ) ∘ (Δ Δᵀ)``, in full f32
+  and never materialized;
+* :class:`TokenFactor`, a Linear weight whose input has extra (token)
+  dimensions: the column is ``Σ_p δ_{c,n,p} ⊗ z_{n,p}`` over the ``T``
+  positions, kept as ``(z, δ)``; its Gram block either expands the columns
+  in bounded chunks or takes the ``T×T`` form, whichever costs fewer
+  operations at the shapes it sees (:meth:`TokenFactor.gram`).
+
+Gram matrices use the flat column index ``c·S + n`` (factor-major).  The
+token blocks of one Gram are summed inside one span, ``gram.token_blocks``
+(:mod:`vivit_tpu_torch.utils.trace`); :data:`TOKEN_BLOCKS` counts the
+token blocks the tapped engine forms.
 """
 
 from dataclasses import dataclass
@@ -56,6 +69,125 @@ class DenseFactor:
         return r.reshape(self.num_cols, r.shape[-1])
 
 
+# the bytes of one f32 chunk of a token block's expansion (:meth:`TokenFactor.gram`)
+TOKEN_CHUNK_BYTES = 1 << 30
+# token blocks formed by the tapped engine since the last reset (``TOKEN_BLOCKS
+# = 0``); a replay of captured CUDA graphs makes no Python call and adds nothing
+TOKEN_BLOCKS = 0
+
+
+@dataclass
+class TokenFactor:
+    """Factored ``Vᵀ`` block of a Linear weight whose input has extra
+    (token) dimensions, flattened to ``T`` positions.
+
+    ``z``: layer inputs ``[S, T, in]``; ``delta``: scaled output cotangents
+    ``[CF, S, T, out]``.  Column ``(c, n)`` is ``Σ_p δ_{c,n,p} z_{n,p}ᵀ``,
+    an ``[out, in]`` matrix in the weight's layout.
+
+    The Gram block (:meth:`gram`) takes one of two forms, chosen from the
+    shapes alone by their operation counts (``N = CF·S`` columns):
+
+    * expansion, ``2·N·T·in·out`` to form the columns in f32 (chunks over
+      ``out`` and ``in`` of at most :data:`TOKEN_CHUNK_BYTES`, each rounded
+      to the Gram's operand dtype as a materialized block is) plus
+      ``2·N²·in·out`` for their Gram, summed into one f32 Gram.  Each
+      chunk's product runs in blocks of at most ``2^14`` of its columns
+      (``precision._K_BLOCK``), each block's f32 result added: an H100's
+      bf16 GEMM with an f32 output sums a long contraction with an error
+      that grows with its length (``PERF.md``: 2.6e-5 at 16,384, 4.9e-4 at
+      196,608, 1.6e-3 at 589,824 against the exact sum);
+    * the ``T×T`` form ``Σ_{p,q} (δ_{c,n,p}·δ_{c',m,q})(z_{n,p}·z_{m,q})``,
+      ``2·(S·T)²·in + 2·(N·T)²·out + (N·T)²``, in full f32 like
+      :class:`DenseFactor` (it holds ``(N·T)²`` values).
+
+    The ``T×T`` form wins where ``T`` is small beside the widths; at
+    ViT-S/16 (``T = 197``, ``in`` of 384 or 1536) it costs ``T²/in ≥ 25``
+    times the expansion, which is taken.  The chunk's scratch is the f32
+    chunk, its operand copy and ``CF`` copies of the ``z`` columns it reads.
+    """
+
+    z: torch.Tensor
+    delta: torch.Tensor
+
+    @property
+    def num_cols(self) -> int:
+        cf, s = self.delta.shape[:2]
+        return cf * s
+
+    def _flops(self):
+        """``(expansion, T×T form)`` operation counts of the Gram block."""
+        cf, s, t, o = self.delta.shape
+        i, n = self.z.shape[-1], cf * s
+        return (2 * n * t * i * o + 2 * n * n * i * o,
+                2 * (s * t) ** 2 * i + 2 * (n * t) ** 2 * o + (n * t) ** 2)
+
+    def _chunks(self):
+        """``[(o0, o1, i0, i1)]``: the expansion's chunks, each at most
+        :data:`TOKEN_CHUNK_BYTES` of f32 (one ``(o, i)`` pair at least),
+        of near-equal sizes."""
+        cf, s, _, o = self.delta.shape
+        i = self.z.shape[-1]
+        pairs = max(1, TOKEN_CHUNK_BYTES // (4 * cf * s))
+        oc = min(o, pairs)
+        ic = min(i, max(1, pairs // oc))
+        oc = -(-o // -(-o // oc))
+        ic = -(-i // -(-i // ic))
+        return [(o0, min(o0 + oc, o), i0, min(i0 + ic, i))
+                for o0 in range(0, o, oc) for i0 in range(0, i, ic)]
+
+    def expand(self, o0=0, o1=None, i0=0, i1=None) -> torch.Tensor:
+        """Columns ``[CF, S, o1-o0, i1-i0]`` of the rows ``o0:o1`` and
+        columns ``i0:i1`` of the weight: one batched product over the
+        ``CF·S`` columns, the ``T`` positions summed."""
+        cf, s, t, o = self.delta.shape
+        d = self.delta[..., o0:o1].reshape(cf * s, t, -1).mT  # [CF·S, oc, T]
+        zc = self.z[..., i0:i1]
+        zc = zc.unsqueeze(0).expand(cf, *zc.shape).reshape(cf * s, t, -1)
+        return torch.bmm(d, zc).reshape(cf, s, d.shape[1], zc.shape[-1])
+
+    def gram(self, precision=None, out=None) -> torch.Tensor:
+        """``[CF·S, CF·S]`` Gram block, added into ``out`` when given;
+        ``precision`` is the operand dtype of the expanded chunks
+        (:func:`vivit_tpu_torch.precision.gram`)."""
+        from vivit_tpu_torch.precision import _K_BLOCK, gram
+
+        expand_flops, tt_flops = self._flops()
+        if tt_flops < expand_flops:
+            g = self._tt_gram()
+            return g if out is None else out.add_(g)
+        n = self.num_cols
+        for o0, o1, i0, i1 in self._chunks():
+            flat = self.expand(o0, o1, i0, i1).reshape(n, -1)
+            if precision is not None:
+                flat = flat.to(precision)
+            for k0 in range(0, flat.shape[1], _K_BLOCK):
+                g = gram(flat[:, k0:k0 + _K_BLOCK], precision)
+                out = g if out is None else out.add_(g)
+        return out
+
+    def _tt_gram(self) -> torch.Tensor:
+        cf, s, t, o = self.delta.shape
+        zf = self.z.reshape(s * t, -1)
+        zz = (zf @ zf.T).reshape(1, s, t, 1, s, t)
+        df = self.delta.reshape(cf * s * t, o)
+        dd = (df @ df.T).reshape(cf, s, t, cf, s, t)
+        return (dd * zz).sum(dim=(2, 5)).reshape(cf * s, cf * s)
+
+    def v_mat_prod(self, gram_vecs: torch.Tensor) -> torch.Tensor:
+        """``V @ ẽ`` for ``[K, CF·S]`` → ``[K, out, in]`` (weight layout)."""
+        cf, s = self.delta.shape[:2]
+        gv = gram_vecs.reshape(gram_vecs.shape[0], cf, s)
+        w = torch.einsum("kcn,cnpo->knpo", gv, self.delta)
+        return torch.einsum("knpo,npi->koi", w, self.z)
+
+    def vt_mat_prod(self, mat: torch.Tensor) -> torch.Tensor:
+        """``Vᵀ @ m`` for ``[K, out, in]`` → ``[CF·S, K]``."""
+        w = torch.einsum("npi,koi->knpo", self.z, mat)
+        r = torch.einsum("knpo,cnpo->cnk", w, self.delta)
+        return r.reshape(self.num_cols, r.shape[-1])
+
+
 def _linear_inputs(module: nn.Module, X: torch.Tensor):
     """One forward recording each ``nn.Linear``'s input: ``({name: z},
     repeated)``, ``repeated`` the layers applied more than once (weight
@@ -96,7 +228,8 @@ def structured_ggn_sqrt_vt(
     engine: str = "tapped",
     conv_vt_dtype: Optional[torch.dtype] = None,
 ) -> Dict[str, Any]:
-    """Mixed ``Vᵀ`` of a module: ``{name: tensor | DenseFactor | ConvVT}``.
+    """Mixed ``Vᵀ`` of a module: ``{name: tensor | DenseFactor | TokenFactor |
+    ConvVT}``.
 
     ``engine="tapped"`` (default): :func:`vivit_tpu_torch.tapped.tapped_ggn_sqrt_vt`,
     its conv blocks stored in ``conv_vt_dtype`` when given (the vjp engine
@@ -152,8 +285,10 @@ def gram_matrix_mixed(
 
     ``generic_precision`` (an operand dtype from
     :data:`vivit_tpu_torch.precision._PRECISIONS`) applies to the
-    materialized blocks (conv weights, biases); the factored Linear blocks
-    run in full f32.
+    materialized blocks (conv weights, biases) and to the expanded chunks
+    of the token blocks; the :class:`DenseFactor` blocks run in full f32.
+    The token blocks are summed first, into one Gram, inside one span
+    ``gram.token_blocks``.
     """
     from vivit_tpu_torch.precision import gram
     from vivit_tpu_torch.tapped import ConvVT
@@ -161,8 +296,15 @@ def gram_matrix_mixed(
     if paths is None:
         paths = list(vt_mixed.keys())
     total = None
+    tokens = [vt_mixed[p] for p in paths if isinstance(vt_mixed[p], TokenFactor)]
+    if tokens:
+        with trace.span("gram.token_blocks", tokens[0].delta):
+            for leaf in tokens:
+                total = leaf.gram(generic_precision, out=total)
     for p in paths:
         leaf = vt_mixed[p]
+        if isinstance(leaf, TokenFactor):
+            continue
         if isinstance(leaf, DenseFactor):
             g = leaf.gram()
         elif isinstance(leaf, ConvVT):
@@ -188,7 +330,7 @@ def v_mat_prod_mixed(
     out = []
     for p in paths:
         leaf = vt_mixed[p]
-        if isinstance(leaf, (DenseFactor, ConvVT)):
+        if isinstance(leaf, (DenseFactor, TokenFactor, ConvVT)):
             out.append(leaf.v_mat_prod(gv))
         else:
             cf, s = leaf.shape[:2]
@@ -208,7 +350,7 @@ def vt_mat_prod_mixed(
     total = None
     for p, m in zip(paths, mat_leaves):
         leaf = vt_mixed[p]
-        if isinstance(leaf, (DenseFactor, ConvVT)):
+        if isinstance(leaf, (DenseFactor, TokenFactor, ConvVT)):
             r = leaf.vt_mat_prod(m)
         else:
             cf, s = leaf.shape[:2]
@@ -362,4 +504,5 @@ def eigvalsh_structured(
             return_eig_info=return_eig_info)
         return graphs.entry(cache_key, body, X, y, None, lambda: graphs.captured(
             X, mc_samples, eig_backend, lambda: graphs.gram_side(
-                forward_fn(module), module_params(module), X, subsampling, deflate_ce_null)))
+                forward_fn(module), module_params(module), X, subsampling, deflate_ce_null),
+            lambda: graphs.param_count(module_params(module))))

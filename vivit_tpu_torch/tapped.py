@@ -1,28 +1,51 @@
 """Tapped V-transform: one batched forward, one backward per factor column
 (counterpart of ``vivit_tpu/tapped.py``).
 
-1. **Taps.**  A forward hook on every ``nn.Linear`` and ``nn.Conv2d`` adds a
-   zero tensor that requires grad (the tap) to the layer's output and
-   records the layer's input ``z``.  The gradient of the model output w.r.t.
-   the taps, seeded with one factor column ``s_{·,c}``, is the per-sample
+1. **Taps.**  A forward hook on every layer of the table below adds a zero
+   tensor that requires grad (the tap) to the layer's output and records
+   the layer's input ``z``.  The gradient of the model output w.r.t. the
+   taps, seeded with one factor column ``s_{·,c}``, is the per-sample
    output cotangent ``δ_c [S, *out]`` of every layer at once: the taps carry
    the batch axis, so nothing is summed over samples.  The backward runs
-   once per factor column (``CF'`` times, keeping the graph).
+   once per factor column (``CF'`` times, keeping the graph); a tap's
+   columns are stacked when its block is built, and the list let go,
+   written into one buffer as they come (a token-shaped Linear), or
+   reduced at once where the block needs only their sums (LayerNorm).
 2. **Layer-local reconstruction** of each parameter's ``Vᵀ`` block from
-   ``(z, δ)``:
+   ``(z, δ)``, the fast-path table:
 
-   * Linear weight → :class:`~vivit_tpu_torch.structured.DenseFactor`
-     ``(z, δ)``, never materialized; with extra input dimensions the
-     Kronecker terms summed over them, materialized;
+   * Linear weight, 2-D input → :class:`~vivit_tpu_torch.structured.DenseFactor`
+     ``(z, δ)``, never materialized;
+   * Linear weight, input with extra (token) dimensions →
+     :class:`~vivit_tpu_torch.structured.TokenFactor` ``(z, δ)`` over the
+     flattened positions, never materialized (its Gram expands it in
+     bounded chunks); :data:`~vivit_tpu_torch.structured.TOKEN_BLOCKS`
+     counts them;
    * Linear bias → ``δ`` (summed over extra dimensions);
    * Conv weight → :class:`ConvVT`, one batched patch×cotangent product,
      patches from ``F.unfold`` in channel-major ``(I, kh, kw)`` order;
-   * Conv bias → ``δ`` summed over output positions.
+   * Conv bias → ``δ`` summed over output positions;
+   * LayerNorm with an affine transform: weight ``Σ_p δ_p ∘ x̂_p``, bias
+     ``Σ_p δ_p``, summed over the dimensions between the batch and the
+     normalized ones; ``x̂`` is the normalized input, from the hooked input
+     and the module's own ``eps``;
+   * a parameter broadcast over the batch (a class token, a learned
+     position embedding): one of shape ``[1, ...]`` and rank 2 or more,
+     held by a module outside the table.  The forward runs with a
+     per-sample copy ``[S, ...]`` that requires grad in its place, and its
+     gradient is the block, ``[CF', S, 1, ...]``.  The copy is exact only
+     where the model broadcasts the leading axis over the batch, so every
+     operation that takes the copy is checked: an addition, subtraction
+     or product with a tensor of the same rank and leading size ``S``, an
+     ``expand`` to leading size ``S``, or a ``cat`` of such tensors along
+     another axis.  Any other use sends the parameter to the generic
+     engine, and the forward runs again without its copy.
 
 Every other parameter (other layer types, grouped or string-padded convs,
 layers applied more than once) goes to the generic engine
 (:func:`vivit_tpu_torch.ggn.ggn_sqrt_vt`) over those parameters alone: the
-result is exact either way, the table is a fast path.
+result is exact either way, the table is a fast path.  :data:`GENERIC_PARAMS`
+counts the parameters sent there.
 
 The steps are spans (:mod:`vivit_tpu_torch.utils.trace`):
 ``vtransform.forward`` (the tapped forward), ``vtransform.loss_hessian_sqrt``
@@ -30,16 +53,30 @@ The steps are spans (:mod:`vivit_tpu_torch.utils.trace`):
 ``vtransform.reconstruct`` (step 2 and the generic engine).
 """
 
+from contextlib import nullcontext
 from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.overrides import TorchFunctionMode
 
 from vivit_tpu_torch.ggn import _sample_ids, _subsample, ggn_sqrt_vt, v_factors
 from vivit_tpu_torch.losses import Loss
 from vivit_tpu_torch.utils import trace
 from vivit_tpu_torch.utils.checks import check_subsampling_unique
+
+# parameters (their elements) sent to the generic engine since the last
+# reset (``GENERIC_PARAMS = 0``); a replay of captured CUDA graphs makes no
+# Python call and adds nothing
+GENERIC_PARAMS = 0
+
+# the operations a broadcast parameter's per-sample copy may enter, by name:
+# element-wise with a batch tensor, ``expand`` over the batch, ``cat``
+_ELEMENTWISE = frozenset({
+    "add", "add_", "__add__", "__radd__", "__iadd__", "sub", "sub_", "__sub__",
+    "__rsub__", "__isub__", "mul", "mul_", "__mul__", "__rmul__", "__imul__"})
+_CAT = frozenset({"cat", "concat", "concatenate"})
 
 
 class ConvVT:
@@ -96,10 +133,127 @@ def _conv_supported(m: nn.Conv2d) -> bool:
             and not isinstance(m.padding, str))
 
 
+def _norm_supported(m: nn.LayerNorm) -> bool:
+    """Whether a LayerNorm layer is inside the fast path (with a weight)."""
+    return m.weight is not None
+
+
 def _fast_layers(module: nn.Module) -> Dict[str, nn.Module]:
     """The layers inside the fast-path table, by module name."""
     return {name: m for name, m in module.named_modules()
-            if type(m) is nn.Linear or (type(m) is nn.Conv2d and _conv_supported(m))}
+            if type(m) is nn.Linear or (type(m) is nn.Conv2d and _conv_supported(m))
+            or (type(m) is nn.LayerNorm and _norm_supported(m))}
+
+
+def _normalized(x: torch.Tensor, m: nn.LayerNorm) -> torch.Tensor:
+    """LayerNorm's ``x̂ = (x − mean) / √(var + eps)`` over its normalized
+    dimensions."""
+    dims = tuple(range(-len(m.normalized_shape), 0))
+    mean = x.mean(dim=dims, keepdim=True)
+    var = x.var(dim=dims, unbiased=False, keepdim=True)
+    return (x - mean) * torch.rsqrt(var + m.eps)
+
+
+def _broadcast_candidates(params, layers) -> list:
+    """The parameters of shape ``[1, ...]`` (rank 2 or more) held by a
+    module outside the table."""
+    owned = {f"{name}.{p}" if name else p for name, m in layers.items()
+             for p, _ in m.named_parameters(recurse=False)}
+    return [n for n, p in params.items()
+            if n not in owned and p.dim() >= 2 and p.shape[0] == 1]
+
+
+def _flat_args(args, kwargs):
+    for a in (*args, *kwargs.values()):
+        if isinstance(a, (list, tuple)):
+            yield from a
+        else:
+            yield a
+
+
+class _Misused(Exception):
+    """A per-sample copy entered an operation outside the rule."""
+
+
+class _BroadcastCheck(TorchFunctionMode):
+    """Watches the per-sample copies ``{name: [S, ...]}`` through a forward:
+    the first operation outside the rule of the module docstring records
+    the copies it takes in ``bad`` and stops the forward (:class:`_Misused`)
+    before it runs."""
+
+    def __init__(self, copies: Dict[str, torch.Tensor], s: int):
+        super().__init__()
+        self.copies, self.s, self.bad = copies, s, set()
+
+    def _batch(self, t, ndim) -> bool:
+        return isinstance(t, torch.Tensor) and t.dim() == ndim and t.shape[0] == self.s
+
+    def _allowed(self, func, args, kwargs) -> bool:
+        name = getattr(func, "__name__", "")
+        if name in _ELEMENTWISE:
+            pair = args[:2]
+            return (len(pair) == 2 and isinstance(pair[0], torch.Tensor)
+                    and all(self._batch(t, pair[0].dim()) for t in pair))
+        if name == "expand":
+            sizes = args[1] if len(args) == 2 and isinstance(args[1], (list, tuple)) \
+                else args[1:]
+            sizes = kwargs.get("size", sizes)
+            return len(sizes) == args[0].dim() and sizes[0] == self.s
+        if name in _CAT:
+            seq = args[0] if args else kwargs.get("tensors", ())
+            dim = args[1] if len(args) > 1 else kwargs.get("dim", 0)
+            ndim = seq[0].dim()
+            return dim % ndim != 0 and all(self._batch(t, ndim) for t in seq)
+        return False
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        ids = {id(a) for a in _flat_args(args, kwargs)}
+        hit = [n for n, c in self.copies.items() if id(c) in ids]
+        if hit and not self._allowed(func, args, kwargs):
+            self.bad.update(hit)
+            raise _Misused
+        return func(*args, **kwargs)
+
+
+def _tapped_forward(module, Xs, layers, copies):
+    """The forward with a tap on every table layer and ``copies`` in place
+    of their parameters: ``(f, zs, taps, repeated, bad)``; ``bad`` names the
+    copies used outside the rule (the forward is then to run again)."""
+    zs: Dict[str, torch.Tensor] = {}
+    taps: Dict[str, torch.Tensor] = {}
+    repeated = set()
+
+    def hook_for(name, m):
+        def hook(_, inputs, out):
+            if name in taps:
+                # weight sharing: the tap holds one call site's cotangent
+                # only, so the layer goes to the generic engine
+                repeated.add(name)
+                return out
+            x = inputs[0].detach()
+            zs[name] = _normalized(x, m) if type(m) is nn.LayerNorm else x
+            taps[name] = torch.zeros_like(out, requires_grad=True)
+            return out + taps[name]
+        return hook
+
+    handles = [m.register_forward_hook(hook_for(name, m)) for name, m in layers.items()]
+    check = _BroadcastCheck(copies, Xs.shape[0]) if copies else None
+    f = None
+    try:
+        with torch.enable_grad(), check or nullcontext():
+            if copies:
+                from torch.func import functional_call
+
+                f = functional_call(module, copies, (Xs,), strict=False)
+            else:
+                f = module(Xs)
+    except _Misused:
+        pass
+    finally:
+        for h in handles:
+            h.remove()
+    return f, zs, taps, repeated, set() if check is None else check.bad
 
 
 def tapped_ggn_sqrt_vt(
@@ -117,7 +271,8 @@ def tapped_ggn_sqrt_vt(
     column_scale: Optional[float] = None,
     conv_vt_dtype: Optional[torch.dtype] = None,
 ) -> Dict[str, Any]:
-    """Mixed ``Vᵀ`` dict ``{parameter name: tensor | DenseFactor | ConvVT}``.
+    """Mixed ``Vᵀ`` dict ``{parameter name: tensor | DenseFactor |
+    TokenFactor | ConvVT}``.
 
     Tensor leaves carry leading ``[CF', S]`` axes.  ``subsampling`` restricts
     the GGN to those samples (columns rescaled by ``√(N/S)``); ``batch_size``
@@ -129,75 +284,95 @@ def tapped_ggn_sqrt_vt(
     cast after their f32 patch product: a bf16 Gram of them is then the same
     arithmetic as without the knob.
     """
+    global GENERIC_PARAMS
+    from vivit_tpu_torch import structured
     from vivit_tpu_torch.engines import forward_fn, module_params
-    from vivit_tpu_torch.structured import DenseFactor
+    from vivit_tpu_torch.structured import DenseFactor, TokenFactor
 
     check_subsampling_unique(subsampling)
     N = batch_size if batch_size is not None else X.shape[0]
     ids = _sample_ids(X, subsampling, sample_ids)
     Xs, ys = _subsample(X, y, subsampling)
+    s = Xs.shape[0]
 
     layers = _fast_layers(module)
-    zs: Dict[str, torch.Tensor] = {}
-    taps: Dict[str, torch.Tensor] = {}
-    repeated = set()
-
-    def hook_for(name):
-        def hook(_, inputs, out):
-            if name in taps:
-                # weight sharing: the tap holds one call site's cotangent
-                # only, so the layer goes to the generic engine
-                repeated.add(name)
-                return out
-            zs[name] = inputs[0].detach()
-            taps[name] = torch.zeros_like(out, requires_grad=True)
-            return out + taps[name]
-        return hook
-
+    params = module_params(module)
+    broadcast = _broadcast_candidates(params, layers)
     with trace.span("vtransform.forward", X):
-        handles = [m.register_forward_hook(hook_for(name))
-                   for name, m in layers.items()]
-        try:
-            with torch.enable_grad():
-                f = module(Xs)
-        finally:
-            for h in handles:
-                h.remove()
+        while True:
+            copies = {n: params[n].expand(s, *params[n].shape[1:]).clone().requires_grad_()
+                      for n in broadcast}
+            f, zs, taps, repeated, bad = _tapped_forward(module, Xs, layers, copies)
+            if not bad:
+                break
+            broadcast = [n for n in broadcast if n not in bad]
 
     with trace.span("vtransform.loss_hessian_sqrt", X):
         factors = v_factors(loss, f.detach(), ys, batch_size=N, mc_samples=mc_samples,
                             key=key, sample_ids=ids, column_scale=column_scale,
                             deflate_ce_null=deflate_ce_null)  # [S, CF', C]
     cots = factors.transpose(0, 1)  # [CF', S, C]
-    names = list(taps)
-    tap_list = [taps[n] for n in names]
+    cf = cots.shape[0]
+    names = [n for n in taps if n not in repeated]
+    wrt = [taps[n] for n in names] + list(copies.values())
+    keys = names + list(copies)
+    norms = {n for n in names if type(layers[n]) is nn.LayerNorm}
+    # a token block's columns go into one buffer as they come: stacked
+    # later, their lists and the stack would be held at once, and the
+    # allocator's cache fragments (ViT-S/16 at N=128 reserved 83.9 GB so,
+    # 70.7 GB with the buffers); every other tap's columns are stacked
+    tokens = {n for n in names if type(layers[n]) is nn.Linear and zs[n].dim() > 2}
+    columns: Dict[str, list] = {k: [] for k in keys}
+    buffers: Dict[str, torch.Tensor] = {}
     with trace.span("vtransform.backward", X):
-        columns = [
-            torch.autograd.grad(f, tap_list, grad_outputs=cot,
-                                retain_graph=i + 1 < len(cots), allow_unused=True)
-            for i, cot in enumerate(cots)
-        ] if names else []
+        for i, cot in enumerate(cots if wrt else ()):
+            grads = torch.autograd.grad(f, wrt, grad_outputs=cot,
+                                        retain_graph=i + 1 < cf, allow_unused=True)
+            for k, ref, g in zip(keys, wrt, grads):
+                if g is None:
+                    g = torch.zeros_like(ref)
+                if k in norms:
+                    # LayerNorm: the sums over the positions, at once
+                    w, b = g * zs[k], g
+                    dims = tuple(range(1, g.dim() - len(layers[k].normalized_shape)))
+                    if dims:
+                        w, b = w.sum(dim=dims), b.sum(dim=dims)
+                    g = (w, b)
+                elif k in tokens:
+                    if k not in buffers:
+                        buffers[k] = g.new_empty((cf, *g.shape))
+                    buffers[k][i].copy_(g)
+                    continue
+                columns[k].append(g)
+
+    def stacked(k):
+        """``[CF', S, ...]``: the columns of ``k`` stacked, then let go."""
+        return torch.stack(columns.pop(k))
+
     with trace.span("vtransform.reconstruct", X):
         mixed: Dict[str, Any] = {}
-        for j, name in enumerate(names):
-            if name in repeated:
-                continue
+        for name in names:
             m = layers[name]
-            z = zs[name]
-            d = torch.stack([col[j] if col[j] is not None else torch.zeros_like(tap_list[j])
-                             for col in columns])  # [CF', S, *out]
-            cf, s = d.shape[:2]
             prefix = f"{name}." if name else ""
+            if name in norms:
+                w, b = zip(*columns.pop(name))
+                mixed[prefix + "weight"] = torch.stack(w)
+                if m.bias is not None:
+                    mixed[prefix + "bias"] = torch.stack(b)
+                continue
+            z = zs[name]
+            d = buffers.pop(name) if name in tokens else stacked(name)  # [CF', S, *out]
             if type(m) is nn.Linear:
                 if z.dim() == 2:
                     mixed[prefix + "weight"] = DenseFactor(z=z, delta=d)
                     if m.bias is not None:
                         mixed[prefix + "bias"] = d
                 else:
-                    # extra input dimensions: the Kronecker terms summed over them
+                    # extra input dimensions: the positions flattened, kept factored
                     zf = z.reshape(s, -1, z.shape[-1])
                     df = d.reshape(cf, s, -1, d.shape[-1])
-                    mixed[prefix + "weight"] = torch.einsum("npi,cnpo->cnoi", zf, df)
+                    mixed[prefix + "weight"] = TokenFactor(z=zf, delta=df)
+                    structured.TOKEN_BLOCKS += 1
                     if m.bias is not None:
                         mixed[prefix + "bias"] = df.sum(dim=2)
             else:
@@ -212,11 +387,13 @@ def tapped_ggn_sqrt_vt(
                     vt.reshape(cf, s, i, kh, kw, o), m.weight.shape)
                 if m.bias is not None:
                     mixed[prefix + "bias"] = df.sum(dim=-1)
+        for name in copies:
+            mixed[name] = stacked(name).reshape(cf, s, *params[name].shape)
 
         # the generic engine for every other parameter (exactness, not speed)
-        params = module_params(module)
         leftover = {name: p for name, p in params.items() if name not in mixed}
         if leftover:
+            GENERIC_PARAMS += sum(p.numel() for p in leftover.values())
             model_fn = forward_fn(module)
 
             def model_fn_partial(diff, x):

@@ -349,7 +349,12 @@ def run(key, fn, inputs, seed):
     return clone(out)
 
 
-def captured(X, mc_samples, solver, gram_side):
+# the share of the card's memory above which a call's ``Vᵀ`` at f32 (Gram
+# side × parameters × 4 bytes) keeps it out of the graphs (:func:`captured`)
+CAPTURE_SHARE = 0.25
+
+
+def captured(X, mc_samples, solver, gram_side, numel=None):
     """The route rule of the entry points: whether a call is captured.
 
     A call is captured when all of these hold:
@@ -358,6 +363,17 @@ def captured(X, mc_samples, solver, gram_side):
       with it);
     * its loss factors are exact (``mc_samples == 0``): Monte-Carlo draws
       come from CPU generators (:func:`vivit_tpu_torch.losses.sample_generator`);
+    * its ``Vᵀ`` at f32, ``4 · gram_side() · numel()`` bytes (``numel()``
+      the parameters it covers, where the caller gives it), is at most
+      :data:`CAPTURE_SHARE` of the card's memory.  A captured call's pool
+      keeps its peak for as long as the entry lives, beside the memory the
+      eager warm-up left in the allocator's cache, and the peak grows with
+      the columns times the parameters; the launches that a capture saves
+      do not grow with them, so at that size they are a small share of the
+      call.  3c3d at N=128 (a 1152-side Gram, 895,210 parameters: 4.1 GB)
+      is captured; ViT-S/16 at N=128 (1152, 21,669,514: 99.8 GB) runs
+      eagerly, its chain solve captured alone (on an 80 GB H100 its whole
+      call's capture runs out of memory after the warm-up; ``PERF.md``);
     * every Gram solve stays on ``eigh_dc``'s chain path or does not run
       it: ``solver`` other than ``"dc"`` (the vendor eigh, or LOBPCG as one
       eager step), or ``gram_side()``, the side of the Gram it solves
@@ -368,11 +384,20 @@ def captured(X, mc_samples, solver, gram_side):
     raises.  :func:`stage` asks on each call of a key without an entry."""
     if not X.is_cuda or mc_samples:
         return False
+    side = gram_side()
+    if numel is not None and 4 * side * numel() > \
+            CAPTURE_SHARE * torch.cuda.get_device_properties(X.device).total_memory:
+        return False
     if solver != "dc":
         return True
     from vivit_tpu_torch.eigdc import _STRIP_MIN
 
-    return gram_side() < _STRIP_MIN
+    return side < _STRIP_MIN
+
+
+def param_count(params):
+    """The parameters (elements) of a ``{name: Tensor}`` dict."""
+    return sum(p.numel() for p in params.values())
 
 
 def gram_side(model_fn, params, X, subsampling, deflate):

@@ -4,7 +4,8 @@ The port's counterpart of the JAX package's ``jax.named_scope`` names.  A
 span is a ``with span(name, like):`` block around one stage; the stages are
 the entry (``eigvalsh_structured``), the V-transform (``vtransform`` and its
 ``.forward``, ``.loss_hessian_sqrt``, ``.backward``, ``.reconstruct``), the
-Gram (``gram``), the eigensolve (``eigensolve``, ``eigh_dc.basis``,
+Gram (``gram``, and inside it ``gram.token_blocks`` around the token blocks'
+sum, one a Gram), the eigensolve (``eigensolve``, ``eigh_dc.basis``,
 ``eigh_dc.polish``, ``eigh_dc.guard``, ``eigh_dc.rerun``) and the small
 dense solves (``leaves``).
 
@@ -36,6 +37,12 @@ Operator's use::
     torch.cuda.synchronize()
     for r in trace.collect():
         print(r.call, r.name, r.device_ms)
+
+Beside the spans, the port keeps counters as module attributes, each
+reset by assignment: ``eigdc.TRIPS`` (guard trips), ``tapped.GENERIC_PARAMS``
+(parameters sent to the generic engine), ``structured.TOKEN_BLOCKS`` (token
+blocks formed), ``precision.THREE_PASS`` and ``THREE_PASS_DECLINED``.  A
+replay runs no Python and adds nothing to them.
 
 :func:`collect` reads the events' times; call it after a synchronize, so
 that it waits for nothing.  The records live in a ring of the newest
