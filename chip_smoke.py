@@ -6,8 +6,9 @@
 Phases, each printed as it runs:
 
 1. **Card**: ``nvidia-smi`` name and power limit, then the builds of the
-   window kernel ``vivit_tpu_torch/csrc/jacobi.cu`` and the leaf kernel
-   ``vivit_tpu_torch/csrc/jacobi_leaf.cu`` (``nvcc``, sm_90a, one process
+   window kernel ``vivit_tpu_torch/csrc/jacobi.cu``, the leaf kernel
+   ``vivit_tpu_torch/csrc/jacobi_leaf.cu`` and the token expansion
+   ``vivit_tpu_torch/csrc/token_expand.cu`` (``nvcc``, sm_90a, one process
    each, started together).
 2. **Kernel against its plain version** on the card at the window shapes of
    the eigensolver, plus two degenerate inputs; the sweeps the kernel ran
@@ -183,10 +184,29 @@ Phases, each printed as it runs:
     named; and the N=128 headline and ``eigh_topk`` calls, which reach no
     ``"high"`` product (``THREE_PASS`` and ``THREE_PASS_DECLINED``
     unchanged).
-18. The call times of the new entries, the launches of each path (the
+18. **Token expansion** (:func:`phase_token_expand`): the columns of
+    ViT-S/16's token blocks at N=128 (:data:`TOKEN_LAYERS`, ``CF = 9``,
+    ``T = 197``, random factors), one chunk of each layer as
+    ``TokenFactor.gram`` cuts it: first the f32 ``torch.bmm`` of
+    ``TokenFactor.expand`` (the route before the kernel, TF32 off) timed,
+    then the kernel (``csrc/token_expand.cu``: its first call, its time,
+    its bound), its plain version's time, the kernel's and the ``bmm``'s
+    errors against float64 (the kernel's at most twice the ``bmm``'s),
+    the share of their bf16 roundings that differ (at most 0.1%;
+    neighbours in bf16 but for elements below 2^8 times the ``bmm``'s own
+    largest error), the kernel against its plain version; each layer's
+    time a query (its chunks times 12 blocks) for both routes; one bf16
+    ``TokenFactor.gram`` per layer under ``torch.profiler``, behind
+    :data:`TOKEN_LEAD` spin kernels: the kernel's executions in the trace
+    equal to ``LAUNCHES`` and to the chunks, one a chunk, the Gram
+    bit-equal to an unprofiled one; a small ViT's
+    ``eigvalsh_structured`` captured and replayed (:func:`token_capture`):
+    the kernel inside the graph, its launches counted by each replay, the
+    replay equal to the eager body.
+19. The call times of the new entries, the launches of each path (the
     leaf kernel's too), a JSON line of the kernels (the leaf kernel's rows
-    by path, :data:`LEAF_ROWS`), the command time, then ``{"ok": true,
-    "device": ...}`` last.
+    by path, :data:`LEAF_ROWS`; the token expansion's by layer), the
+    command time, then ``{"ok": true, "device": ...}`` last.
 
 Any failed check exits non-zero.  Without a CUDA device it exits 2 and
 prints no result.
@@ -215,7 +235,7 @@ THREE_PASS_SHAPES = [("4608^3", (4608, 4608), (4608, 4608)),
 # the sizes n of the crossover sweep, of squares and of [2, n, n] batches
 THREE_PASS_SWEEP = (512, 768, 1024, 1280, 1536, 1792, 2048, 2448, 3072)
 # the kernels' sources under vivit_tpu_torch/csrc/, built at the start
-KERNEL_SOURCES = ("jacobi", "jacobi_leaf")
+KERNEL_SOURCES = ("jacobi", "jacobi_leaf", "token_expand")
 KERNEL_SHAPES = [(37, 32), (36, 32), (13, 32), (16, 48), (32, 64)]
 HEADLINE_SHAPES = [(37, 32), (36, 32)]  # the window solves of one n=1152 solve
 SWEEP_SHAPES = [(b, m) for m in (32, 48, 64)
@@ -238,6 +258,18 @@ HEADLINE = dict(precision="highest", gram_precision="bf16", deflate_ce_null=True
 NEWTON_RTOL, NEWTON_ATOL, GAMMA_ATOL, LAMBDA_ATOL = 1e-5, 1e-5, 1e-4, 1e-5
 LOBPCG_STEP_ATOL = 7.7e-4
 LOBPCG_ITERS = 100  # topk_eigh's default lobpcg_iters
+# ViT-S/16's token-shaped Linear layers (name, in, out), each in its 12
+# blocks, at the benchmark's ViT cell: N=128, CF' = 9 deflated columns a
+# sample, T = 197 positions
+TOKEN_LAYERS = [("qkv", 384, 1152), ("proj", 384, 384), ("fc1", 384, 1536), ("fc2", 1536, 384)]
+TOKEN_CF, TOKEN_T, TOKEN_DEPTH = 9, 197, 12
+PEAK_TF32_FLOPS = 495e12  # H100 SXM, dense (NVIDIA data sheet)
+# the least share of the kernel's bf16 roundings equal to the f32 bmm's
+TOKEN_BF16_EQUAL = 0.999
+# spin kernels ahead of phase 18's profiled Grams: late in a long process the
+# profiler drops the device records of a profile's first launches, whatever
+# they are (1 to 23 of them seen; PERF.md §7), and the lead-in takes the loss
+TOKEN_LEAD = 64
 # ‖G_generic − G_tapped‖_F/‖G_tapped‖_F of the f32 Grams: f32 summation noise,
 # the bar of tests/test_torch_port_ggn.py (ENGINE_BAR)
 ENGINE_BAR = 1e-5
@@ -1706,6 +1738,185 @@ def phase_three_pass(model):
     return crossovers
 
 
+def phase_token_expand():
+    """Phase 18: the token expansion's kernel against the f32 ``bmm``, its
+    plain version and float64 at ViT-S/16's chunks (module docstring);
+    returns its rows of the kernels line, one a layer."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from vivit_tpu_torch.kernels import token_expand as te
+    from vivit_tpu_torch.precision import full_f32
+    from vivit_tpu_torch.structured import TokenFactor
+
+    def rel(x, ref):
+        return float(torch.linalg.vector_norm((x.double() - ref).flatten())
+                     / torch.linalg.vector_norm(ref.flatten()))
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rows, query = [], {"bmm_ms": 0.0, "kernel_ms": 0.0, "bound_ms": 0.0}
+    for name, i, o in TOKEN_LAYERS:
+        leaf = TokenFactor(
+            z=torch.randn((N, TOKEN_T, i), generator=gen, device="cuda"),
+            delta=1e-3 * torch.randn((TOKEN_CF, N, TOKEN_T, o), generator=gen, device="cuda"))
+        chunks = leaf._chunks()
+        check(len({(o1 - o0, i1 - i0) for o0, o1, i0, i1 in chunks}) == 1,
+              f"token {name}: chunks of several shapes {chunks}")
+        c = chunks[0]
+        cols, oc, ic = leaf.num_cols, c[1] - c[0], c[3] - c[2]
+
+        def kernel():
+            return te.token_expand_cuda(leaf.z, leaf.delta, *c)
+
+        with full_f32():  # the route before the kernel, timed first
+            bmm_ms = cuda_ms(lambda: leaf.expand(*c), 5)
+            bmm = leaf.expand(*c).flatten(0, 1)
+        before = te.LAUNCHES
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = kernel()
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        check(te.LAUNCHES == before + 1, f"token {name}: {te.LAUNCHES - before} launches")
+        kernel_ms = cuda_ms(kernel, 10)
+        with full_f32():
+            plain_ms = cuda_ms(lambda: te.token_expand_plain(leaf.z, leaf.delta, *c), 2,
+                               warmup=1)
+            plain = te.token_expand_plain(leaf.z, leaf.delta, *c)
+        d, z = leaf.delta[..., c[0]:c[1]].double(), leaf.z[..., c[2]:c[3]].double()
+        ref = torch.einsum("cnpo,npi->cnoi", d, z).flatten(0, 1)
+        del d, z
+        err, err_bmm, err_plain = rel(got, ref), rel(bmm, ref), rel(plain, ref)
+        vs_plain = rel(got, plain.double())
+        del plain
+        share = float((got.bfloat16() != bmm.bfloat16()).double().mean())
+        apart, apart_f32 = te.bf16_apart(got, bmm), te.bf16_apart(bmm, ref)
+        floor = float(apart.max()) if apart.numel() else 0.0
+        f32_err = float((bmm.double() - ref).abs().max())
+        del got, bmm
+        flops = 3 * 2.0 * cols * TOKEN_T * oc * ic
+        nbytes = 4.0 * (cols * oc * ic + TOKEN_CF * N * TOKEN_T * oc + N * TOKEN_T * ic)
+        bound_ms = max(flops / PEAK_TF32_FLOPS, nbytes / PEAK_BYTES) * 1e3
+        per_query = len(chunks) * TOKEN_DEPTH
+        query["bmm_ms"] += bmm_ms * per_query
+        query["kernel_ms"] += kernel_ms * per_query
+        query["bound_ms"] += bound_ms * per_query
+        print(f"token expansion {name} (in {i}, out {o}): chunk [{cols}, {oc}, {ic}] x "
+              f"{len(chunks)}; f32 bmm {bmm_ms:.4f} ms; kernel {kernel_ms:.4f} ms "
+              f"({flops / kernel_ms / 1e9:.1f} TFLOP/s TF32, {bmm_ms / kernel_ms:.3f}x the "
+              f"bmm), first call {first_s:.2f} s; bound {bound_ms:.4f} ms "
+              f"({'operations' if flops / PEAK_TF32_FLOPS >= nbytes / PEAK_BYTES else 'bytes'}"
+              f", {100 * bound_ms / kernel_ms:.1f}%); plain {plain_ms:.2f} ms; error vs "
+              f"float64 {err:.3e} (bmm {err_bmm:.3e}, ratio {err / err_bmm:.3f}; plain "
+              f"{err_plain:.3e}); kernel vs plain {vs_plain:.3e}; bf16 roundings that "
+              f"differ {100 * share:.4f}%, {apart.numel()} of them not neighbours, all of "
+              f"|x| <= {floor:.3e} (2^8 x the bmm's largest error: {2 ** 8 * f32_err:.3e}; "
+              f"bmm against float64: {apart_f32.numel()} not neighbours)", flush=True)
+        del ref
+        check(err <= 2 * err_bmm, f"token {name}: error {err:.3e}, the bmm's {err_bmm:.3e}")
+        check(vs_plain <= 4 * err_bmm, f"token {name}: {vs_plain:.3e} off its plain version")
+        check(share <= 1 - TOKEN_BF16_EQUAL and floor <= 2 ** 8 * f32_err,
+              f"token {name}: {100 * share:.4f}% of bf16 roundings differ, non-neighbours up "
+              f"to |x| {floor:.3e}")
+
+        want = leaf.gram(torch.bfloat16)
+        before = te.LAUNCHES
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(TOKEN_LEAD):
+                torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            got = leaf.gram(torch.bfloat16)
+            torch.cuda.synchronize()
+        device = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        traced = sum(e.count for e in device if "token_expand_kernel" in e.key)
+        lead = sum(e.count for e in device if "spin_kernel" in e.key)
+        launches, same = te.LAUNCHES - before, bool(torch.equal(got, want))
+        del got, want
+        print(f"token expansion {name}: a bf16 Gram: {launches} launches, {traced} in the "
+              f"trace ({TOKEN_LEAD - lead} of the {TOKEN_LEAD} lead-in records dropped), "
+              f"bit-equal to an unprofiled Gram {same}", flush=True)
+        check(launches == traced == len(chunks) and same,
+              f"token {name}: launches {launches}, traced {traced}, chunks {len(chunks)}, "
+              f"equal to an unprofiled Gram {same}")
+        rows.append({"path": f"TokenFactor.gram ViT-S/16 {name} N={N}", "launches": len(chunks),
+                     "chunk": [cols, oc, ic], "ms": kernel_ms, "plain_ms": plain_ms,
+                     "library_ms": bmm_ms, "bound_ms": bound_ms, "rel_err": err,
+                     "bmm_rel_err": err_bmm, "bf16_differ_share": share})
+        del leaf
+        torch.cuda.empty_cache()
+    print(f"token expansion a query (12 blocks): f32 bmm {query['bmm_ms']:.2f} ms, kernel "
+          f"{query['kernel_ms']:.2f} ms, bound {query['bound_ms']:.2f} ms "
+          f"({100 * query['bound_ms'] / query['kernel_ms']:.1f}%)", flush=True)
+    check(query["kernel_ms"] < query["bmm_ms"], f"token expansion: {query}")
+    token_capture()
+    return rows
+
+
+# a small ViT (benchmark/networks/vit.py) whose whole call is captured
+TOKEN_VIT = {"image": [32, 32, 3], "patch": 8, "width": 64, "heads": 2, "mlp": 128, "depth": 2,
+             "num_classes": 10, "init": {"std": 0.02, "ln_eps": 1e-6}}
+
+
+def token_capture():
+    """Phase 18's capture: ``eigvalsh_structured`` of a small ViT with a
+    bf16 Gram, first eagerly (the kernel once a token block, each one
+    chunk; :data:`structured.TOKEN_BLOCKS`), then captured and
+    replayed, each replay adding the captured launches to ``LAUNCHES``
+    (``graphs._COUNTED``) and equal to the eager body."""
+    import importlib.util
+    import os
+
+    import torch
+
+    import vivit_tpu_torch as vtt
+    from vivit_tpu_torch import structured
+    from vivit_tpu_torch.kernels import token_expand as te
+    from vivit_tpu_torch.utils import graphs
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "benchmark", "networks",
+                        "vit.py")
+    spec = importlib.util.spec_from_file_location("bench_networks_vit", path)
+    vit = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(vit)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    net = vit.build(TOKEN_VIT, torch.device("cuda"), gen)
+    X = torch.randn((16, *TOKEN_VIT["image"]), generator=gen, device="cuda")
+    y = torch.randint(0, TOKEN_VIT["num_classes"], (16,), generator=gen, device="cuda")
+    loss = vtt.CrossEntropyLoss("mean")
+
+    def call():
+        (evals,) = vtt.eigvalsh_structured(net, loss, X, y, eig_backend="dc", **HEADLINE)
+        torch.cuda.synchronize()
+        return evals.clone()
+
+    graphs.clear()
+    with deterministic_cudnn():
+        structured.TOKEN_BLOCKS, before = 0, te.LAUNCHES
+        with eager_entries():
+            ref = call()
+        blocks, eager = structured.TOKEN_BLOCKS, te.LAUNCHES - before
+        keys = set(graphs.entries())
+        call()
+        captured = [k for k in graphs.entries() if k not in keys]
+        mid = te.LAUNCHES
+        got = call()
+        replayed = te.LAUNCHES - mid
+    same = bool(torch.equal(got, ref))
+    gap = float((got - ref).abs().max() / ref.abs().max())
+    print(f"token expansion captured: a small ViT's eigvalsh_structured (bf16 Gram), eager "
+          f"{eager} launches for {blocks} token blocks of one chunk; {len(captured)} entry "
+          f"captured; a replay "
+          f"adds {replayed} launches; replay bit-equal to the eager body {same} "
+          f"(max|Δ|/max|eager| {gap:.2e})", flush=True)
+    check(blocks == eager == 4 * TOKEN_VIT["depth"] and len(captured) == 1,
+          f"token capture: {blocks} blocks, {eager} eager launches, {len(captured)} entries")
+    check(replayed == eager, f"token capture: a replay added {replayed} launches, not {eager}")
+    check(same or gap <= ENTRY_BAR, f"token capture: replay {gap:.2e} off the eager body")
+    graphs.clear()
+
+
 def generic_model():
     """3c3d as a plain model function over a params dict on the card (the
     module's own parameters stay unused on the CPU)."""
@@ -2915,7 +3126,7 @@ def phase_graphs(jc):
         (entry,) = [e for k, e in graphs.entries().items() if k not in before]
         steps = [f"{list(st.args[0].shape)}" for st in entry.steps]
         print(f"{label}: first call {t_first:.3f} ms (capture {entry.capture_s * 1e3:.3f} ms "
-              f"host clock, warm-up included): {len(entry.graphs)} graphs, (window, leaf) "
+              f"host clock, warm-up included): {len(entry.graphs)} graphs, (window, leaf, token) "
               f"kernel launches captured per graph {entry.launches}, {len(steps)} vendor "
               f"steps between them {steps}", flush=True)
         check(all(st.fn is torch.linalg.eigh for st in entry.steps),
@@ -3380,7 +3591,7 @@ def phase_entry_graphs(jc):
             print(f"{label}: first call {t_first:.3f} ms (capture "
                   + " + ".join(f"{e.capture_s * 1e3:.3f}" for e in entries)
                   + f" ms host clock, warm-up included; {len(keys)} programs, "
-                  f"{sum(len(e.graphs) for e in entries)} graphs, (window, leaf) kernel "
+                  f"{sum(len(e.graphs) for e in entries)} graphs, (window, leaf, token) kernel "
                   f"launches captured per graph {[e.launches for e in entries]}, eager steps "
                   f"{steps}, pools "
                   + ", ".join(gb(b) for b in pools) + "); the replay bit-equal to the eager "
@@ -3477,6 +3688,7 @@ def main():
         phase_entry_graphs(jc)
         release_graphs("the three-pass phase")
         phase_three_pass(port_model())
+        token_rows = phase_token_expand()
     except SmokeFailure as exc:
         print(f"chip_smoke: FAIL: {exc}", file=sys.stderr)
         return 1
@@ -3528,6 +3740,10 @@ def main():
             "replaces": "vivit_tpu/eigdc.py:360"}
     # times: the sums over the path's leaf and edge batches of one solve
     kernels += [{**leaf, "path": path, **row} for path, row in LEAF_ROWS.items()]
+    # times: one chunk; a layer's Gram launches once a chunk
+    kernels += [{"name": "token_expand_kernel", "route": "cuda",
+                 "source": "vivit_tpu_torch/csrc/token_expand.cu", "replaces": None, **row}
+                for row in token_rows]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"command time: {time.perf_counter() - started:.1f} s (from the start of main)",
           flush=True)

@@ -91,7 +91,11 @@ class TokenFactor:
     * expansion, ``2·N·T·in·out`` to form the columns in f32 (chunks over
       ``out`` and ``in`` of at most :data:`TOKEN_CHUNK_BYTES`, each rounded
       to the Gram's operand dtype as a materialized block is) plus
-      ``2·N²·in·out`` for their Gram, summed into one f32 Gram.  Each
+      ``2·N²·in·out`` for their Gram, summed into one f32 Gram.  Off the
+      CPU, f32 factors' chunks are formed by
+      :func:`~vivit_tpu_torch.kernels.token_expand.token_expand_cuda`
+      (three TF32 passes on the tensor cores, f32-faithful; launches
+      counted in its module's ``LAUNCHES``), elsewhere by :meth:`expand`.  Each
       chunk's product runs in blocks of at most ``2^14`` of its columns
       (``precision._K_BLOCK``), each block's f32 result added: an H100's
       bf16 GEMM with an f32 output sums a long contraction with an error
@@ -104,7 +108,8 @@ class TokenFactor:
     The ``T×T`` form wins where ``T`` is small beside the widths; at
     ViT-S/16 (``T = 197``, ``in`` of 384 or 1536) it costs ``T²/in ≥ 25``
     times the expansion, which is taken.  The chunk's scratch is the f32
-    chunk, its operand copy and ``CF`` copies of the ``z`` columns it reads.
+    chunk and its operand copy (:meth:`expand` adds ``CF`` copies of the
+    ``z`` columns it reads).
     """
 
     z: torch.Tensor
@@ -150,6 +155,7 @@ class TokenFactor:
         """``[CF·S, CF·S]`` Gram block, added into ``out`` when given;
         ``precision`` is the operand dtype of the expanded chunks
         (:func:`vivit_tpu_torch.precision.gram`)."""
+        from vivit_tpu_torch.kernels.token_expand import token_expand_cuda
         from vivit_tpu_torch.precision import _K_BLOCK, gram
 
         expand_flops, tt_flops = self._flops()
@@ -157,8 +163,14 @@ class TokenFactor:
             g = self._tt_gram()
             return g if out is None else out.add_(g)
         n = self.num_cols
+        # the kernel's wrapper raises for a tensor it cannot take: no fallback
+        on_card = (self.delta.device.type != "cpu"
+                   and self.z.dtype == self.delta.dtype == torch.float32)
         for o0, o1, i0, i1 in self._chunks():
-            flat = self.expand(o0, o1, i0, i1).reshape(n, -1)
+            if on_card:
+                flat = token_expand_cuda(self.z, self.delta, o0, o1, i0, i1).reshape(n, -1)
+            else:
+                flat = self.expand(o0, o1, i0, i1).reshape(n, -1)
             if precision is not None:
                 flat = flat.to(precision)
             for k0 in range(0, flat.shape[1], _K_BLOCK):

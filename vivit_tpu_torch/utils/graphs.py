@@ -17,10 +17,11 @@ pool; its eager steps with their static inputs and outputs; the static
 inputs (copied in before each replay) and outputs (cloned out after it, so
 that the next replay cannot overwrite what a caller holds); generators
 registered with every graph and re-seeded before each replay, so that a
-replay draws what an eager call with the same seeds draws; and the Jacobi
+replay draws what an eager call with the same seeds draws; and the
 kernels' launches captured in each graph, which every replay adds to their
 counters (``jacobi_cuda.LAUNCHES`` for the windows,
-``jacobi_leaf_cuda.LAUNCHES`` for the leaves and edge blocks).
+``jacobi_leaf_cuda.LAUNCHES`` for the leaves and edge blocks,
+``token_expand.LAUNCHES`` for the token blocks' columns).
 
 Bodies nest.  Inside a running body :func:`run` captures nothing of its
 own: its ``fn`` runs inline, its draws from a generator of its own
@@ -53,11 +54,11 @@ import time
 
 import torch
 
-from vivit_tpu_torch.kernels import jacobi_cuda, jacobi_leaf_cuda
+from vivit_tpu_torch.kernels import jacobi_cuda, jacobi_leaf_cuda, token_expand
 
 # the kernels' launch counters: a capture launches nothing, a replay adds
 # what its graphs captured
-_COUNTED = (jacobi_cuda, jacobi_leaf_cuda)
+_COUNTED = (jacobi_cuda, jacobi_leaf_cuda, token_expand)
 _CACHE = {}
 _STREAMS = {}  # device -> the side stream of its warm-ups and captures
 _ACTIVE = None  # the Segments running a body, if any
