@@ -1038,7 +1038,7 @@ def phase_eigenpairs(jc, model, n, expect_launches):
         (ev_d, V_d, info), batches = recording_eigh(
             lambda: eigdc.eigh_dc(gram_d, return_info=True))
     torch.cuda.synchronize()
-    time_leaves(batches, label, leaf_launches, eager=gram_d.shape[0] >= eigdc._STRIP_MIN)
+    time_leaves(batches, label, leaf_launches, eager=gram_d.shape[0] >= eigdc.STRIP_MIN)
     print(f"{label}: deflated Gram {tuple(gram_d.shape)}, Jacobi launches {launches}, "
           f"guard tripped {bool(info['tripped'])} (bound {float(info['bound']):.2e}, "
           f"orth {float(info['orth']):.2e}), top-{TOP_K} "
@@ -1864,7 +1864,7 @@ def token_capture():
     bf16 Gram, first eagerly (the kernel once a token block, each one
     chunk; :data:`structured.TOKEN_BLOCKS`), then captured and
     replayed, each replay adding the captured launches to ``LAUNCHES``
-    (``graphs._COUNTED``) and equal to the eager body."""
+    (registered with ``graphs.count_launches``) and equal to the eager body."""
     import importlib.util
     import os
 
@@ -3640,6 +3640,7 @@ def main():
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
         return 2
     from vivit_tpu_torch.kernels import jacobi_cuda as jc
+    from vivit_tpu_torch.kernels import toolchain
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -3649,7 +3650,7 @@ def main():
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
-        builds = dict(zip(KERNEL_SOURCES, pool.map(jc.build, KERNEL_SOURCES)))
+        builds = dict(zip(KERNEL_SOURCES, pool.map(toolchain.build, KERNEL_SOURCES)))
     print(f"kernel builds (nvcc, sm_90a, one process per source, started together): "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     for name, (_, build_s, log) in builds.items():

@@ -21,6 +21,7 @@ import functools
 import gc
 import sys
 import weakref
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -28,7 +29,7 @@ import torch
 from torch import nn
 
 import vivit_tpu_torch as vtt
-from vivit_tpu_torch import eig, eigdc
+from vivit_tpu_torch import eig, eigdc, engines
 from vivit_tpu_torch.engines import forward_fn, module_params
 from vivit_tpu_torch.utils import graphs
 
@@ -166,14 +167,14 @@ def tracked(monkeypatch):
     monkeypatch.setattr(graphs, "_CACHE", {})
     monkeypatch.setattr(graphs, "_capture", _Tracked)
     monkeypatch.setattr(_Tracked, "runs", [])
-    monkeypatch.setattr(graphs, "captured", lambda X, mc, solver, side, *_: mc == 0)
+    monkeypatch.setattr(engines, "captured", lambda X, mc, solver, side, *_: mc == 0)
     return _Tracked.runs
 
 
 def _eagerly(monkeypatch, fn):
     """``fn()`` on the eager route (the route rule says no)."""
     with monkeypatch.context() as m:
-        m.setattr(graphs, "captured", lambda X, mc, solver, side, *_: False)
+        m.setattr(engines, "captured", lambda X, mc, solver, side, *_: False)
         return fn()
 
 
@@ -487,7 +488,8 @@ def test_the_key_holds_its_callables():
     model, params = _model("function", module)
 
     def key(fn, damping):
-        return graphs.entry_key("newton_step_topk", fn, params, X, y, LOSS, damping=damping)
+        return engines.entry_key("newton_step_topk", fn, params, X, y, LOSS,
+                                 (0, "dc", None, False), damping=damping)
 
     def damped(lam):
         return lambda evals, evecs, gammas, lambdas: lam * torch.ones_like(evals)
@@ -507,20 +509,27 @@ def test_the_key_holds_its_callables():
     assert key(model, vtt.constant_damping(1.0)) != key(model, vtt.constant_damping(2.0))
 
 
-def test_route_rule():
-    """The rule alone: a CUDA call with exact factors is captured if its
-    solver is not ``"dc"`` or its Gram is below 1536; Monte-Carlo factors,
-    a strip-path Gram and a CPU tensor are not."""
+def test_route_rule(monkeypatch):
+    """The rule alone: a CUDA call with exact factors and a small ``Vᵀ`` is
+    captured if its solver is not ``"dc"`` or its Gram is below 1536;
+    Monte-Carlo factors, a strip-path Gram and a CPU tensor are not."""
     class Card:
         is_cuda = True
+        device = "cuda:0"
 
-    assert graphs.captured(Card, 0, "dc", lambda: 1535)
-    assert not graphs.captured(Card, 0, "dc", lambda: 1536)
-    assert graphs.captured(Card, 0, "eigh", lambda: 4608)
-    assert graphs.captured(Card, 0, "lobpcg", lambda: 4608)
-    assert graphs.captured(Card, 0, "xla", lambda: 4608)
-    assert not graphs.captured(Card, 1, "eigh", lambda: 72)
-    assert not graphs.captured(torch.ones(1), 0, "eigh", lambda: 72)
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda device: SimpleNamespace(total_memory=80 * 2 ** 30))
+
+    def numel():  # 3c3d's parameters
+        return 895_210
+
+    assert engines.captured(Card, 0, "dc", lambda: 1535, numel)
+    assert not engines.captured(Card, 0, "dc", lambda: 1536, numel)
+    assert engines.captured(Card, 0, "eigh", lambda: 4608, numel)
+    assert engines.captured(Card, 0, "lobpcg", lambda: 4608, numel)
+    assert engines.captured(Card, 0, "xla", lambda: 4608, numel)
+    assert not engines.captured(Card, 1, "eigh", lambda: 72, numel)
+    assert not engines.captured(torch.ones(1), 0, "eigh", lambda: 72, numel)
 
 
 @pytest.mark.parametrize("form", ["module", "function"])
@@ -530,13 +539,13 @@ def test_entries_ask_the_route_rule(monkeypatch, form):
     sub-sample); a CPU call, a Monte-Carlo call and a strip-path Gram take
     the eager route and open no entry."""
     monkeypatch.setattr(graphs, "_CACHE", {})
-    asked, rule = [], graphs.captured
+    asked, rule = [], engines.captured
 
     def spy(X, mc, solver, side, *rest):
         asked.append((mc, solver, None if mc else side()))
         return rule(X, mc, solver, side, *rest)
 
-    monkeypatch.setattr(graphs, "captured", spy)
+    monkeypatch.setattr(engines, "captured", spy)
     module, X, y = _problem()
     model, params = _model(form, module)
     p = {} if form == "module" else {"params": params}
@@ -551,8 +560,18 @@ def test_entries_ask_the_route_rule(monkeypatch, form):
     # the rule on a card: a strip-path Gram and Monte-Carlo factors go eager
     class Card:
         is_cuda = True
+        device = "cuda:0"
 
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda device: SimpleNamespace(total_memory=80 * 2 ** 30))
     wide, wide_params = _model("function", Net(200))
-    assert graphs.gram_side(wide, wide_params, X, None, True) == 199 * N
-    assert not rule(Card, 0, "dc", lambda: graphs.gram_side(wide, wide_params, X, None, True))
-    assert not rule(Card, 2, "dc", lambda: 72)
+
+    def side():
+        return engines.gram_side(wide, wide_params, X, None, True)
+
+    def numel():
+        return engines.param_count(wide_params)
+
+    assert side() == 199 * N
+    assert not rule(Card, 0, "dc", side, numel)
+    assert not rule(Card, 2, "dc", lambda: 72, numel)

@@ -382,3 +382,48 @@ def test_package_imports_no_jax_source():
                 if name.split(".")[0] in ("jax", "jaxlib", "flax", "vivit_tpu"):
                     found.append((path, name))
     assert not found, found
+
+
+def test_capture_mechanism_and_toolchain_stand_alone():
+    """``utils/graphs.py``, the capture mechanism, imports no module of the
+    package, deferred imports included, and names no kernel module (each
+    registers its own launch counter); ``nvcc`` runs (``subprocess``) and
+    ``ctypes.CDLL`` appear in one module of ``kernels/`` only."""
+    pkg = os.path.join(REPO, "vivit_tpu_torch")
+
+    def tree(path):
+        with open(path) as fh:
+            return ast.parse(fh.read(), path)
+
+    kernels = {f[:-3] for f in os.listdir(os.path.join(pkg, "kernels"))
+               if f.endswith(".py") and f != "__init__.py"}
+    graphs = tree(os.path.join(pkg, "utils", "graphs.py"))
+    imported, named = [], []
+    for node in ast.walk(graphs):
+        if isinstance(node, ast.Import):
+            imported += [a.name for a in node.names if a.name.startswith("vivit_tpu_torch")]
+        elif isinstance(node, ast.ImportFrom) and (
+                node.level or (node.module or "").startswith("vivit_tpu_torch")):
+            imported.append(node.module)
+        elif isinstance(node, ast.Name) and node.id in kernels:
+            named.append(node.id)
+        elif isinstance(node, ast.Attribute) and node.attr in kernels:
+            named.append(node.attr)
+    assert not imported and not named, (imported, named)
+
+    building = set()
+    for root, _, files in os.walk(pkg):
+        for f in files:
+            if not f.endswith(".py"):
+                continue
+            path = os.path.join(root, f)
+            for node in ast.walk(tree(path)):
+                runs = (isinstance(node, ast.Import)
+                        and any(a.name == "subprocess" for a in node.names)
+                        or isinstance(node, ast.ImportFrom) and node.module == "subprocess")
+                opens = (isinstance(node, ast.Attribute) and node.attr == "CDLL"
+                         or isinstance(node, ast.Name) and node.id == "CDLL"
+                         or isinstance(node, ast.alias) and node.name == "CDLL")
+                if runs or opens:
+                    building.add(os.path.relpath(path, pkg))
+    assert len(building) == 1 and os.path.dirname(building.pop()) == "kernels", building

@@ -273,11 +273,10 @@ def test_eigh_topk_matches_reference_eigenpairs(problem):
 def test_route_rule_keeps_a_vit_call_eager(monkeypatch):
     """On an 80 GB card the rule captures 3c3d at N=128 (a 1152-side Gram,
     895,210 parameters: 4.1 GB of f32 Vᵀ) and keeps ViT-S/16 at N=128
-    (21,669,514 parameters: 99.8 GB) eager; without a parameter count the
-    rule is the Gram side's alone, as before."""
+    (21,669,514 parameters: 99.8 GB) eager."""
     from types import SimpleNamespace
 
-    from vivit_tpu_torch.utils import graphs
+    from vivit_tpu_torch import engines
 
     class Card:
         is_cuda = True
@@ -285,8 +284,7 @@ def test_route_rule_keeps_a_vit_call_eager(monkeypatch):
 
     monkeypatch.setattr(torch.cuda, "get_device_properties",
                         lambda device: SimpleNamespace(total_memory=80 * 2 ** 30))
-    assert graphs.captured(Card, 0, "dc", lambda: 1152, lambda: 895_210)
-    assert not graphs.captured(Card, 0, "dc", lambda: 1152, lambda: 21_669_514)
-    assert not graphs.captured(Card, 0, "eigh", lambda: 1152, lambda: 21_669_514)
-    assert graphs.captured(Card, 0, "dc", lambda: 1152)
-    assert graphs.param_count({"a": torch.zeros(3, 4), "b": torch.zeros(5)}) == 17
+    assert engines.captured(Card, 0, "dc", lambda: 1152, lambda: 895_210)
+    assert not engines.captured(Card, 0, "dc", lambda: 1152, lambda: 21_669_514)
+    assert not engines.captured(Card, 0, "eigh", lambda: 1152, lambda: 21_669_514)
+    assert engines.param_count({"a": torch.zeros(3, 4), "b": torch.zeros(5)}) == 17

@@ -295,9 +295,9 @@ def in_situ(jc, jl):
         gram_d = smoke.deflated_gram(model, loss, X, y)[2]
         # the strip path routes its batches as solved outside any graph
         solves += [(f"eigvalsh_structured N={n}", lambda g=gram: eigdc.eigvalsh_dc(g),
-                    gram.shape[0] >= eigdc._STRIP_MIN),
+                    gram.shape[0] >= eigdc.STRIP_MIN),
                    (f"eigh_topk N={n}", lambda g=gram_d: eigdc.eigh_dc(g),
-                    gram_d.shape[0] >= eigdc._STRIP_MIN)]
+                    gram_d.shape[0] >= eigdc.STRIP_MIN)]
     for label, solve, eager in solves:
         with smoke.eager_body(), full_f32():
             _, batches = smoke.recording_eigh(solve)
@@ -368,13 +368,14 @@ def main():
         return 2
     from vivit_tpu_torch.kernels import jacobi_cuda as jc
     from vivit_tpu_torch.kernels import jacobi_leaf_cuda as jl
+    from vivit_tpu_torch.kernels import toolchain
 
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0], flush=True)
-    jc.build()
-    jc.build("jacobi_leaf")
+    toolchain.build("jacobi")
+    toolchain.build("jacobi_leaf")
     try:
         kernel_sweep(jc)
         leaf_sweep()

@@ -24,7 +24,7 @@ def main():
     import torch
 
     import chip_smoke as smoke
-    from vivit_tpu_torch.kernels import jacobi_cuda
+    from vivit_tpu_torch.kernels import toolchain
 
     if not torch.cuda.is_available():
         print("torch_token_expand: no CUDA device; nothing to run", file=sys.stderr)
@@ -33,7 +33,7 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     print(f"{card}; torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
-    _, build_s, log = jacobi_cuda.build("token_expand")
+    _, build_s, log = toolchain.build("token_expand")
     print(f"csrc/token_expand.cu: {build_s:.2f} s", flush=True)
     for line in log.splitlines():
         if "registers" in line or "spill" in line:

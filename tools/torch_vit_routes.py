@@ -46,7 +46,7 @@ def main(argv=None):
 
     import harness
     import program
-    from vivit_tpu_torch import eigdc, structured, tapped
+    from vivit_tpu_torch import eigdc, engines, structured, tapped
     from vivit_tpu_torch.utils import graphs, trace
 
     with open(os.path.join(CHECKOUT, "BENCHMARK.json")) as fh:
@@ -156,8 +156,8 @@ def main(argv=None):
         graphs.clear()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(device)
-        rule = graphs.captured
-        graphs.captured = lambda *a: True
+        rule = engines.captured
+        engines.captured = lambda *a: True
         try:
             _, capture_s = timed(2)
             replays = [timed(q)[1] for q in range(3, 3 + args.queries)]
@@ -166,7 +166,7 @@ def main(argv=None):
         except torch.cuda.OutOfMemoryError as e:
             emit(step="captured", failed=f"out of memory: {str(e).splitlines()[0]}", **mem())
         finally:
-            graphs.captured = rule
+            engines.captured = rule
             graphs.clear()
     return 0
 

@@ -110,7 +110,9 @@ _KPM_GRID = 1024
 _SIGMA_FLOOR = 0.04
 _MARGIN = 64
 _PAD_SLACK = 32
-_STRIP_MIN = 1536
+# the default strip threshold: a Gram of this side or more takes the strip
+# path, which no CUDA graph captures
+STRIP_MIN = 1536
 # the guard's trips: verdicts past the threshold read on the host, each a
 # rerun of the solve on the vendor's (see the module docstring)
 TRIPS = 0
@@ -462,7 +464,7 @@ def _basis(H, count, gen, depth: int, cfg):
     balanced tree on the top.  Precisions as in :func:`_ladder`.
     """
     n = H.shape[0]
-    if depth == 0 and cfg["strip"] != 0 and n >= (cfg["strip"] or _STRIP_MIN):
+    if depth == 0 and cfg["strip"] != 0 and n >= (cfg["strip"] or STRIP_MIN):
         return _strip_basis(H, count, gen, cfg)
     if cfg["ladder"] and depth == 0 and (n < 2048 or cfg["deskew_terms"] is not None):
         return _ladder(H, count, gen, cfg)
@@ -749,7 +751,7 @@ def eigh_dc(
                 evals, evecs = graphs.eager(torch.linalg.eigvalsh, H), None
             return ((evals, evecs, no_trip_info(H.device)) if return_info
                     else (evals, evecs))
-        strip_on = strip != 0 and n >= (strip or _STRIP_MIN)
+        strip_on = strip != 0 and n >= (strip or STRIP_MIN)
         if strip_on:
             # the strip's chain must end in wide exact leaves, or a zoom
             # link's capacity clip loses the band's smallest carriers; the
@@ -859,7 +861,7 @@ def _solve(gen, H, cfg, polish, eigenvectors, guarded):
         for _ in range(wj[1]):
             Bt, Qp = _windowed_jacobi(Bt, Qp, w)
         Bt, Qp = _edge_block(Bt, Qp, polish["edge"], top=False)
-        if m >= _STRIP_MIN:  # the JAX package's gate: m, not the strip threshold
+        if m >= STRIP_MIN:  # the JAX package's gate: m, not the strip threshold
             Bt, Qp = _edge_block(*_sort_by_diag(Bt, Qp), polish["edge"], top=True)
         # clusters straddling the bottom-block boundary: one more local sweep
         for _ in range(wj[2]):

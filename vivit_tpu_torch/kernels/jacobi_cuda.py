@@ -29,15 +29,16 @@ Kernel and plain version apply the same operations in the same order and
 rounding, so on the card they agree to the bit on the inputs that
 ``chip_smoke.py`` checks.
 
-The kernel is built with ``nvcc`` for ``sm_90a`` at its first CUDA call, into
-``vivit_tpu_torch/_build/``, and loaded with ``ctypes``.
+The kernel is built with ``nvcc`` for ``sm_90a`` at its first CUDA call and
+loaded by :func:`vivit_tpu_torch.kernels.toolchain.load`.
 """
 
-import hashlib
-import os
-import time
+from ctypes import c_int, c_void_p
 
 import torch
+
+from vivit_tpu_torch.kernels import toolchain
+from vivit_tpu_torch.utils import graphs
 
 SWEEPS = 12
 MAX_M = 64
@@ -48,18 +49,11 @@ KERNEL_SIZES = (32, 48, 64)
 # replay of captured CUDA graphs makes no Python call: it adds the launches
 # its graphs captured (``vivit_tpu_torch.utils.graphs``).
 LAUNCHES = 0
+graphs.count_launches(__name__)
 
-_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_BUILD_DIR = os.path.join(_PKG_DIR, "_build")
-_LIB = None
+# the C entries of ``csrc/jacobi.cu`` and their arguments
+_ENTRIES = {"vivit_jacobi_eigh_f32": [c_void_p] * 5 + [c_int] * 3 + [c_void_p]}
 _SCHEDULES = {}  # (m, device) -> the schedule table on that device
-_NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    # no multiply-add contraction: the kernel rounds every product and sum
-    # as its plain version does
-    "--fmad=false",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-]
 
 
 def _rot_from(app, aqq, apq):
@@ -198,47 +192,6 @@ def jacobi_sweeps_plain(A: torch.Tensor, exit_early: bool = False, sweeps: int =
     return torch.diagonal(A, dim1=-2, dim2=-1), V, ran
 
 
-def build(name: str = "jacobi"):
-    """Compile ``csrc/<name>.cu`` (this module's kernel, or ``jacobi_leaf``
-    for :mod:`vivit_tpu_torch.kernels.jacobi_leaf_cuda`) for ``sm_90a``, once
-    per version of the source and flags, and return ``(library path,
-    seconds, compiler output)``."""
-    import subprocess
-
-    source = os.path.join(_PKG_DIR, "csrc", f"{name}.cu")
-    with open(source, "rb") as fh:
-        digest = hashlib.sha256(fh.read() + " ".join(_NVCC_FLAGS).encode())
-    lib_path = os.path.join(_BUILD_DIR, f"lib{name}_{digest.hexdigest()[:12]}.so")
-    if os.path.exists(lib_path):
-        return lib_path, 0.0, ""
-    os.makedirs(_BUILD_DIR, exist_ok=True)
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    nvcc = os.path.join(cuda_home, "bin", "nvcc")
-    tmp = f"{lib_path}.{os.getpid()}.tmp"
-    cmd = [nvcc, *_NVCC_FLAGS, "-o", tmp, source]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, lib_path)
-    return lib_path, seconds, proc.stderr
-
-
-def _library():
-    global _LIB
-    if _LIB is None:
-        import ctypes
-
-        lib_path, _, _ = build()
-        lib = ctypes.CDLL(lib_path)
-        fn = lib.vivit_jacobi_eigh_f32
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _LIB = lib
-    return _LIB
-
-
 def _schedule(m: int, device: torch.device) -> torch.Tensor:
     key = (m, device)
     if key not in _SCHEDULES:
@@ -266,7 +219,8 @@ def batched_eigh_jacobi_cuda(A: torch.Tensor, return_sweeps: bool = False,
     V = torch.empty((b, m, m), dtype=A.dtype, device=A.device)
     sweeps_run = torch.empty((b,), dtype=torch.int32, device=A.device)
     if b > 0:
-        fn = _library().vivit_jacobi_eigh_f32
+        fn = toolchain.load("jacobi", _ENTRIES, A.device,
+                            "Jacobi kernel").vivit_jacobi_eigh_f32
         sched = _schedule(m, A.device)
         with torch.cuda.device(A.device):
             stream = torch.cuda.current_stream(A.device).cuda_stream

@@ -27,14 +27,16 @@ that touches the pad has ``a_pq = 0`` exactly and is the identity, so the
 pad stays decoupled, and its row, column and eigenvalue are dropped before
 the sort.  Both versions see the padded input.
 
-The kernel is built by :func:`vivit_tpu_torch.kernels.jacobi_cuda.build`
-(``build("jacobi_leaf")``: ``nvcc``, ``sm_90a``, ``--fmad=false``) at its
-first CUDA call and loaded with ``ctypes``.
+The kernel is built with ``nvcc`` for ``sm_90a`` at its first CUDA call and
+loaded by :func:`vivit_tpu_torch.kernels.toolchain.load`.
 """
+
+from ctypes import c_int, c_void_p
 
 import torch
 
-from vivit_tpu_torch.kernels import jacobi_cuda
+from vivit_tpu_torch.kernels import jacobi_cuda, toolchain
+from vivit_tpu_torch.utils import graphs
 
 LEAF_MAX_M = 160
 SWEEPS = jacobi_cuda.SWEEPS
@@ -43,9 +45,13 @@ SWEEPS = jacobi_cuda.SWEEPS
 # replay of captured CUDA graphs makes no Python call: it adds the launches
 # its graphs captured (``vivit_tpu_torch.utils.graphs``).
 LAUNCHES = 0
+graphs.count_launches(__name__)
 
-_LIB = None
-_PREPARED = set()  # devices whose shared-memory limit the library has raised
+# the C entries of ``csrc/jacobi_leaf.cu`` and their arguments
+_ENTRIES = {
+    "vivit_jacobi_leaf_prepare": [],
+    "vivit_jacobi_leaf_eigh_f32": [c_void_p] * 4 + [c_int] * 3 + [c_void_p],
+}
 
 
 def _check(A):
@@ -82,30 +88,6 @@ def batched_eigh_leaf_plain(A: torch.Tensor, exit_early: bool = False,
     return (evals, evecs, ran) if return_sweeps else (evals, evecs)
 
 
-def _library(device):
-    global _LIB
-    if _LIB is None:
-        import ctypes
-
-        lib_path, _, _ = jacobi_cuda.build("jacobi_leaf")
-        lib = ctypes.CDLL(lib_path)
-        lib.vivit_jacobi_leaf_prepare.argtypes = []
-        lib.vivit_jacobi_leaf_prepare.restype = ctypes.c_int
-        fn = lib.vivit_jacobi_leaf_eigh_f32
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _LIB = lib
-    if device not in _PREPARED:
-        # the limit belongs to the device's context: raised once per device,
-        # at its first launch (an eager warm-up precedes every capture)
-        with torch.cuda.device(device):
-            err = _LIB.vivit_jacobi_leaf_prepare()
-        if err != 0:
-            raise RuntimeError(f"leaf Jacobi kernel: shared memory limit refused: cudaError {err}")
-        _PREPARED.add(device)
-    return _LIB
-
-
 def batched_eigh_leaf_cuda(A: torch.Tensor, return_sweeps: bool = False,
                            sweeps: int = SWEEPS):
     """The Hopper kernel: ``[B, m, m] -> (evals ascending, evecs)`` after at
@@ -125,7 +107,8 @@ def batched_eigh_leaf_cuda(A: torch.Tensor, return_sweeps: bool = False,
     V = torch.empty((b, mp, mp), dtype=A.dtype, device=A.device)
     sweeps_run = torch.empty((b,), dtype=torch.int32, device=A.device)
     if b > 0:
-        fn = _library(A.device).vivit_jacobi_leaf_eigh_f32
+        fn = toolchain.load("jacobi_leaf", _ENTRIES, A.device,
+                            "leaf Jacobi kernel").vivit_jacobi_leaf_eigh_f32
         with torch.cuda.device(A.device):
             stream = torch.cuda.current_stream(A.device).cuda_stream
             err = fn(Ap.data_ptr(), d.data_ptr(), V.data_ptr(), sweeps_run.data_ptr(),

@@ -39,25 +39,33 @@ Beside it:
   nor neighbours, the check the tests and ``chip_smoke.py`` make of the
   kernel's columns against the f32 ``bmm``'s.
 
-The kernel is built by :func:`vivit_tpu_torch.kernels.jacobi_cuda.build`
-(``build("token_expand")``: ``nvcc``, ``sm_90a``) at its first CUDA call
-and loaded with ``ctypes``.  A launch neither allocates nor reads the host,
-so it runs inside a CUDA graph once an eager call has built the library and
-raised the device's shared-memory limit.
+The kernel is built with ``nvcc`` for ``sm_90a`` at its first CUDA call and
+loaded by :func:`vivit_tpu_torch.kernels.toolchain.load`.  A launch neither
+allocates nor reads the host, so it runs inside a CUDA graph once an eager
+call has built the library and raised the device's shared-memory limit.
 """
+
+from ctypes import c_int, c_longlong, c_void_p
 
 import torch
 
-from vivit_tpu_torch.kernels import jacobi_cuda
+from vivit_tpu_torch.kernels import toolchain
 from vivit_tpu_torch.precision import tf32_split
+from vivit_tpu_torch.utils import graphs
 
 # Launches of the kernel since the last reset (``LAUNCHES = 0``).  A replay
 # of captured CUDA graphs makes no Python call: it adds the launches its
 # graphs captured (``vivit_tpu_torch.utils.graphs``).
 LAUNCHES = 0
+graphs.count_launches(__name__)
 
-_LIB = None
-_PREPARED = set()  # devices whose shared-memory limit the library has raised
+# the C entries of ``csrc/token_expand.cu`` and their arguments
+_ENTRIES = {
+    "vivit_token_expand_prepare": [],
+    "vivit_token_expand_max_rows": [c_int],
+    "vivit_token_expand_f32": ([c_void_p] * 3 + [c_int] * 5 + [c_longlong] * 7
+                               + [c_int] * 3 + [c_void_p]),
+}
 
 
 def _sliced(z, delta, o0, o1, i0, i1):
@@ -91,34 +99,6 @@ def token_expand_plain(z: torch.Tensor, delta: torch.Tensor, o0=0, o1=None, i0=0
     return out.reshape(-1, *out.shape[2:])
 
 
-def _library(device):
-    global _LIB
-    if _LIB is None:
-        import ctypes
-
-        lib_path, _, _ = jacobi_cuda.build("token_expand")
-        lib = ctypes.CDLL(lib_path)
-        lib.vivit_token_expand_prepare.argtypes = []
-        lib.vivit_token_expand_prepare.restype = ctypes.c_int
-        lib.vivit_token_expand_max_rows.argtypes = [ctypes.c_int]
-        lib.vivit_token_expand_max_rows.restype = ctypes.c_int
-        fn = lib.vivit_token_expand_f32
-        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 7
-                       + [ctypes.c_int] * 3 + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        _LIB = lib
-    if device not in _PREPARED:
-        # the limit belongs to the device's context: raised once per device,
-        # at its first launch (an eager warm-up precedes every capture)
-        with torch.cuda.device(device):
-            err = _LIB.vivit_token_expand_prepare()
-        if err != 0:
-            raise RuntimeError(f"token expansion kernel: shared memory limit refused: "
-                               f"cudaError {err}")
-        _PREPARED.add(device)
-    return _LIB
-
-
 def _width(ic):
     """The columns ``i`` a block takes: of 192 and 128 the width whose
     blocks cover ``ic`` with the fewest padded columns, the wider of equals."""
@@ -146,7 +126,7 @@ def token_expand_cuda(z: torch.Tensor, delta: torch.Tensor, o0=0, o1=None, i0=0,
     cf, s, t, oc = d.shape
     ic = zc.shape[-1]
     out = torch.empty((cf * s, oc, ic), dtype=torch.float32, device=d.device)
-    lib = _library(d.device)
+    lib = toolchain.load("token_expand", _ENTRIES, d.device, "token expansion kernel")
     width = _width(ic)
     rows = lib.vivit_token_expand_max_rows(width)
     vec = int(_vectorized(d, zc))

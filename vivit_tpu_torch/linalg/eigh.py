@@ -18,7 +18,6 @@ from vivit_tpu_torch.linalg.utils import (
     group_key,
     kept_indices,
     resolve_param_groups,
-    stage1,
     start_compute,
     warn_if_small,
 )
@@ -79,14 +78,13 @@ def eigh_topk(
     ``mc_samples``/``key`` select Monte-Carlo factors; ``engine`` and
     ``conv_vt_dtype`` (the conv blocks' storage dtype) apply to a module.
     On the card the call is captured as CUDA graphs and replayed by key
-    (:func:`vivit_tpu_torch.utils.graphs.stage`).
+    (:func:`vivit_tpu_torch.engines.entry`).
     """
     from vivit_tpu_torch.deflate import ce_probs, check_deflatable, deflated_topk_eigh
     from vivit_tpu_torch.eig import topk_eigh
-    from vivit_tpu_torch.engines import build_vt, gram_any, resolve_model
+    from vivit_tpu_torch.engines import build_vt, entry, gram_any, resolve_model
     from vivit_tpu_torch.ggn import _subsample
     from vivit_tpu_torch.precision import _PRECISIONS, matmul_precision
-    from vivit_tpu_torch.utils import graphs
     from vivit_tpu_torch.utils.device import inputs_on
 
     model_fn, fwd_params = resolve_model(model, params)
@@ -110,16 +108,10 @@ def eigh_topk(
                 evals, evecs = topk_eigh(gram, k, solver=solver, lobpcg_iters=lobpcg_iters)
             return evals, backproject(vt, evecs, evals, paths)
 
-    cache_key = graphs.entry_key(
-        "eigh_topk", model, fwd_params, X, y, loss, k=k, paths=paths,
-        subsampling=subsampling, mc_samples=mc_samples, batch_size=batch_size,
-        precision=precision, gram_precision=gram_precision, solver=solver,
-        lobpcg_iters=lobpcg_iters, deflate_ce_null=deflate_ce_null, engine=engine,
-        conv_vt_dtype=conv_vt_dtype)
-    return graphs.entry(cache_key, body, X, y, params, lambda: graphs.captured(
-        X, mc_samples, solver,
-        lambda: graphs.gram_side(model_fn, fwd_params, X, subsampling, deflate_ce_null),
-        lambda: graphs.param_count(fwd_params)))
+    return entry("eigh_topk", body, model, params, X, y, loss, mc_samples, solver,
+                 subsampling, deflate_ce_null, k=k, paths=paths, batch_size=batch_size,
+                 precision=precision, gram_precision=gram_precision,
+                 lobpcg_iters=lobpcg_iters, engine=engine, conv_vt_dtype=conv_vt_dtype)
 
 
 def _gram_eigh_all(model, loss, X, y, *, params, group_paths, subsampling, mc_samples,
@@ -170,7 +162,7 @@ class EighComputation:
     ``compute``'s ``params=``/``key=``, ``self_check`` and ``device`` are
     those of :class:`~vivit_tpu_torch.linalg.eigvalsh.EigvalshComputation`.
     On the card the Gram eigendecompositions of ``compute`` run as one
-    captured program (:func:`vivit_tpu_torch.linalg.utils.stage1`); the
+    captured program (:func:`vivit_tpu_torch.engines.stage`); the
     criteria read the host after it and the kept columns' back-projection
     runs eagerly.
     """
@@ -220,6 +212,7 @@ class EighComputation:
                 ) -> List[Tuple[torch.Tensor, List[torch.Tensor]]]:
         """Run the computation on the batch ``(X, y)``; returns ``(evals,
         evecs)`` per group."""
+        from vivit_tpu_torch.engines import stage
         from vivit_tpu_torch.precision import matmul_precision
         from vivit_tpu_torch.utils import graphs
 
@@ -232,12 +225,14 @@ class EighComputation:
 
         results = []
         with matmul_precision(self._precision):
-            (vt, eigs), replayed = stage1(
-                self, "EighComputation", self._stage1, X, y, params, group_paths,
-                lambda X, y, params: _gram_eigh_all(
+            s = self._stage1
+            (vt, eigs), replayed = stage(
+                "EighComputation", lambda X, y, params: _gram_eigh_all(
                     self._model, self._loss, X, y, params=params, group_paths=group_paths,
-                    key=key, **self._stage1),
-                self._stage1["eig_backend"])
+                    key=key, **s),
+                self._model, params, X, y, self._loss, s["mc_samples"], s["eig_backend"],
+                s["subsampling"], s["deflate_ce_null"], groups=group_paths,
+                precision=self._precision, **s)
             for group, paths, (gram_evals, gram_evecs, info) in zip(
                     param_groups, group_paths, eigs):
                 keep = kept_indices(group["criterion"], gram_evals)

@@ -51,7 +51,7 @@ def eigvalsh(
     ``engine``, ``conv_vt_dtype`` and the ``batch_size`` default apply to a
     module, ``params`` and ``batch_size`` to a model function.  On the card
     the call is captured as CUDA graphs and replayed by key
-    (:func:`vivit_tpu_torch.utils.graphs.stage`).
+    (:func:`vivit_tpu_torch.engines.entry`).
     """
     from vivit_tpu_torch.engines import is_module, resolve_model
 
@@ -68,10 +68,10 @@ def eigvalsh(
 
     from vivit_tpu_torch.deflate import ce_probs, check_deflatable, deflated_eigvalsh
     from vivit_tpu_torch.eig import full_eigh
+    from vivit_tpu_torch.engines import entry
     from vivit_tpu_torch.ggn import _subsample, ggn_sqrt_vt
     from vivit_tpu_torch.gram import gram_matrix
     from vivit_tpu_torch.precision import _PRECISIONS, matmul_precision
-    from vivit_tpu_torch.utils import graphs
     from vivit_tpu_torch.utils.device import inputs_on
 
     params = fwd_params
@@ -98,15 +98,9 @@ def eigvalsh(
                     evals.append(full_eigh(gram, backend=eig_backend, eigenvectors=False)[0])
         return tuple(evals)
 
-    cache_key = graphs.entry_key(
-        "eigvalsh", model, params, X, y, loss, group_paths=group_paths,
-        subsampling=subsampling, mc_samples=mc_samples, batch_size=batch_size,
-        precision=precision, gram_precision=gram_precision, eig_backend=eig_backend,
-        deflate_ce_null=deflate_ce_null)
-    return graphs.entry(cache_key, body, X, y, params, lambda: graphs.captured(
-        X, mc_samples, eig_backend,
-        lambda: graphs.gram_side(model_fn, params, X, subsampling, deflate_ce_null),
-        lambda: graphs.param_count(params)))
+    return entry("eigvalsh", body, model, params, X, y, loss, mc_samples, eig_backend,
+                 subsampling, deflate_ce_null, group_paths=group_paths,
+                 batch_size=batch_size, precision=precision, gram_precision=gram_precision)
 
 
 class EigvalshComputation:

@@ -118,29 +118,3 @@ def warn_if_small(evals: torch.Tensor, threshold: float) -> None:
     read)."""
     if threshold and bool((evals.abs() < threshold).any()):
         warnings.warn(SMALL_EIGVALS_WARNING)
-
-
-def stage1(comp, name, settings, X, y, params, group_paths, body, solver):
-    """The captured program of a criterion class's ``compute``:
-    ``body(X, y, params)`` (the V-transform and each group's Gram and
-    eigensolve) through :func:`vivit_tpu_torch.utils.graphs.stage`, keyed
-    by the class ``name``, its ``settings`` (the class's ``_stage1`` dict:
-    ``subsampling`` or ``subsampling_ggn``, ``mc_samples`` or
-    ``mc_samples_ggn``, ``deflate_ce_null``, ...), ``comp._precision`` and
-    the groups, routed by :func:`~vivit_tpu_torch.utils.graphs.captured`
-    with ``solver`` (the Gram's side from the class's sub-sample).  Returns
-    ``(outputs, replayed)``; replayed outputs are the entry's static ones,
-    which the class's eager rest reads in place after the host criterion,
-    before the next call."""
-    from vivit_tpu_torch.engines import resolve_model
-    from vivit_tpu_torch.utils import graphs
-
-    model_fn, fwd_params = resolve_model(comp._model, params)
-    subsampling = settings.get("subsampling", settings.get("subsampling_ggn"))
-    mc_samples = settings.get("mc_samples", settings.get("mc_samples_ggn"))
-    key = graphs.entry_key(name, comp._model, fwd_params, X, y, comp._loss,
-                           groups=group_paths, **{**settings, "precision": comp._precision})
-    return graphs.stage(key, body, X, y, params, lambda: graphs.captured(
-        X, mc_samples, solver, lambda: graphs.gram_side(
-            model_fn, fwd_params, X, subsampling, settings["deflate_ce_null"]),
-        lambda: graphs.param_count(fwd_params)))

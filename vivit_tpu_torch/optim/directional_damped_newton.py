@@ -18,7 +18,6 @@ from vivit_tpu_torch.linalg.utils import (
     group_key,
     kept_indices,
     resolve_param_groups,
-    stage1,
     start_compute,
     warn_if_small,
 )
@@ -34,7 +33,7 @@ from vivit_tpu_torch.utils.checks import check_subsampling_unique
 def constant_damping(value: float = 1.0):
     """Damping callable: ``δ_k = value`` for every direction.  Its
     ``graph_key`` keys a captured call by ``value``
-    (:func:`vivit_tpu_torch.utils.graphs.entry_key`)."""
+    (the entry points' cache key, :mod:`vivit_tpu_torch.engines`)."""
 
     def damping(evals, evecs, gammas, lambdas):
         return value * torch.ones_like(evals)
@@ -135,7 +134,7 @@ class DirectionalDampedNewtonComputation:
     runs :func:`vivit_tpu_torch.utils.checks.check_model_fn` on the first
     ``compute``.  ``device`` defaults to the CUDA card, where ``compute``
     runs the V-transform and each group's Gram solve as one captured
-    program (:func:`vivit_tpu_torch.linalg.utils.stage1`); the criteria,
+    program (:func:`vivit_tpu_torch.engines.stage`); the criteria,
     dampings and steps run eagerly after it.
     """
 
@@ -193,6 +192,7 @@ class DirectionalDampedNewtonComputation:
                 key: Optional[int] = None) -> List[List[torch.Tensor]]:
         """Run the computation on the batch ``(X, y)``; returns the Newton
         step per group."""
+        from vivit_tpu_torch.engines import stage
         from vivit_tpu_torch.precision import matmul_precision
 
         X, y, diff_params = start_compute(self, X, y, params)
@@ -203,13 +203,14 @@ class DirectionalDampedNewtonComputation:
             print(f"DirectionalDampedNewtonComputation: groups {group_paths}")
         s_ggn = (len(self._subsampling_ggn) if self._subsampling_ggn is not None
                  else X.shape[0])
-        settings = self._stage1
-        (vt, per_group), _ = stage1(
-            self, "DirectionalDampedNewtonComputation", settings, X, y, params, group_paths,
-            lambda X, y, params: derivatives_stage1(
+        s = self._stage1
+        (vt, per_group), _ = stage(
+            "DirectionalDampedNewtonComputation", lambda X, y, params: derivatives_stage1(
                 self._model, self._loss, X, y, params=params, group_paths=group_paths,
-                key=key, **settings),
-            settings["solver"] if settings["k_top"] is not None else settings["eig_backend"])
+                key=key, **s),
+            self._model, params, X, y, self._loss, s["mc_samples_ggn"],
+            s["solver"] if s["k_top"] is not None else s["eig_backend"],
+            s["subsampling_ggn"], s["deflate_ce_null"], groups=group_paths, **s)
 
         results = []
         with matmul_precision(self._precision):

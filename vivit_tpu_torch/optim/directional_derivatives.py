@@ -11,7 +11,6 @@ from vivit_tpu_torch.linalg.utils import (
     group_key,
     kept_indices,
     resolve_param_groups,
-    stage1,
     start_compute,
     warn_if_small,
 )
@@ -77,7 +76,7 @@ class DirectionalDerivativesComputation:
     [S_ggn, K])`` with ``γ[n, k] = g_nᵀ e_k`` and ``λ[n, k] = e_kᵀ (J_nᵀ H_n
     J_n) e_k``.  ``device`` defaults to the CUDA card, where ``compute``
     runs the V-transform and each group's Gram solve as one captured
-    program (:func:`vivit_tpu_torch.linalg.utils.stage1`); the criteria
+    program (:func:`vivit_tpu_torch.engines.stage`); the criteria
     and γ/λ run eagerly after it.
     """
 
@@ -127,6 +126,7 @@ class DirectionalDerivativesComputation:
                 key: Optional[int] = None) -> List[Tuple[torch.Tensor, torch.Tensor]]:
         """Run the computation on the batch ``(X, y)``; returns ``(gammas,
         lambdas)`` per group."""
+        from vivit_tpu_torch.engines import stage
         from vivit_tpu_torch.precision import matmul_precision
 
         X, y, diff_params = start_compute(self, X, y, params)
@@ -137,12 +137,13 @@ class DirectionalDerivativesComputation:
             print(f"DirectionalDerivativesComputation: groups {group_paths}")
         s_ggn = (len(self._subsampling_ggn) if self._subsampling_ggn is not None
                  else X.shape[0])
-        (_, per_group), _ = stage1(
-            self, "DirectionalDerivativesComputation", self._stage1, X, y, params,
-            group_paths, lambda X, y, params: derivatives_stage1(
+        s = self._stage1
+        (_, per_group), _ = stage(
+            "DirectionalDerivativesComputation", lambda X, y, params: derivatives_stage1(
                 self._model, self._loss, X, y, params=params, group_paths=group_paths,
-                key=key, **self._stage1),
-            self._stage1["eig_backend"])
+                key=key, **s),
+            self._model, params, X, y, self._loss, s["mc_samples_ggn"], s["eig_backend"],
+            s["subsampling_ggn"], s["deflate_ce_null"], groups=group_paths, **s)
 
         results = []
         with matmul_precision(self._precision):

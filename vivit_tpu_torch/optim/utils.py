@@ -144,14 +144,13 @@ def topk_entry(name, finish, model, loss, X, y, k, *, params, paths, subsampling
     without eigensolve, the (optionally deflated) top-``k`` and γ/λ, then
     ``finish(vt, paths, evals_sel, evecs_sel, gammas, lambdas)``, the
     entry's result.  On the card the call is captured as CUDA graphs and
-    replayed by key (:func:`vivit_tpu_torch.utils.graphs.stage`; ``settings``
+    replayed by key (:func:`vivit_tpu_torch.engines.entry`; ``settings``
     are the rest of the key, e.g. the damping).
     """
     from vivit_tpu_torch.eig import topk_eigh
-    from vivit_tpu_torch.engines import resolve_model
+    from vivit_tpu_torch.engines import entry, resolve_model
     from vivit_tpu_torch.ggn import _subsample
     from vivit_tpu_torch.precision import matmul_precision
-    from vivit_tpu_torch.utils import graphs
     from vivit_tpu_torch.utils.device import inputs_on
 
     model_fn, fwd_params = resolve_model(model, params)
@@ -186,14 +185,9 @@ def topk_entry(name, finish, model, loss, X, y, k, *, params, paths, subsampling
             gammas, lambdas = gammas_lambdas(gram, evals_sel, evecs_sel, v_t_g, s_ggn)
             return finish(vt, paths, evals_sel, evecs_sel, gammas, lambdas)
 
-    cache_key = graphs.entry_key(
-        name, model, fwd_params, X, y, loss, k=k, paths=paths,
-        subsampling_grad=subsampling_grad, subsampling_ggn=subsampling_ggn,
-        mc_samples_ggn=mc_samples_ggn, batch_size=batch_size, precision=precision,
-        gram_precision=gram_precision, solver=solver, lobpcg_iters=lobpcg_iters,
-        deflate_ce_null=deflate_ce_null, engine=engine, conv_vt_dtype=conv_vt_dtype,
-        **settings)
-    return graphs.entry(cache_key, body, X, y, params, lambda: graphs.captured(
-        X, mc_samples_ggn, solver,
-        lambda: graphs.gram_side(model_fn, fwd_params, X, subsampling_ggn, deflate_ce_null),
-        lambda: graphs.param_count(fwd_params)))
+    return entry(name, body, model, params, X, y, loss, mc_samples_ggn, solver,
+                 subsampling_ggn, deflate_ce_null, k=k, paths=paths,
+                 subsampling_grad=subsampling_grad, batch_size=batch_size,
+                 precision=precision, gram_precision=gram_precision,
+                 lobpcg_iters=lobpcg_iters, engine=engine, conv_vt_dtype=conv_vt_dtype,
+                 **settings)

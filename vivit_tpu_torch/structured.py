@@ -460,17 +460,15 @@ def eigvalsh_structured(
     gives the same Gram).  ``return_eig_info``:
     return ``(evals_per_group, infos_per_group)`` with the eigensolver's
     guard info.  On the card the call is captured
-    (:func:`vivit_tpu_torch.utils.graphs.captured`): its first call per key
-    (:func:`vivit_tpu_torch.utils.graphs.entry_key`) captures it as CUDA
-    graphs, later calls replay them.  The call's stages are spans
+    (:func:`vivit_tpu_torch.engines.entry`): its first call per key captures
+    it as CUDA graphs, later calls replay them.  The call's stages are spans
     (:mod:`vivit_tpu_torch.utils.trace`): ``eigvalsh_structured`` from the
     inputs on the device to the result, ``vtransform``, and per group
     ``gram`` and ``eigensolve``.
     """
     from vivit_tpu_torch.eig import full_eigh
-    from vivit_tpu_torch.engines import forward_fn, module_params
+    from vivit_tpu_torch.engines import entry
     from vivit_tpu_torch.precision import _PRECISIONS, matmul_precision
-    from vivit_tpu_torch.utils import graphs
     from vivit_tpu_torch.utils.device import inputs_on
 
     if deflate_ce_null:
@@ -508,13 +506,7 @@ def eigvalsh_structured(
         return tuple(evals)
 
     with trace.span("eigvalsh_structured", X):
-        cache_key = graphs.entry_key(
-            "eigvalsh_structured", module, None, X, y, loss, group_paths=group_paths,
-            subsampling=subsampling, mc_samples=mc_samples, precision=precision,
-            gram_precision=gram_precision, eig_backend=eig_backend,
-            deflate_ce_null=deflate_ce_null, engine=engine, conv_vt_dtype=conv_vt_dtype,
-            return_eig_info=return_eig_info)
-        return graphs.entry(cache_key, body, X, y, None, lambda: graphs.captured(
-            X, mc_samples, eig_backend, lambda: graphs.gram_side(
-                forward_fn(module), module_params(module), X, subsampling, deflate_ce_null),
-            lambda: graphs.param_count(module_params(module))))
+        return entry("eigvalsh_structured", body, module, None, X, y, loss, mc_samples,
+                     eig_backend, subsampling, deflate_ce_null, group_paths=group_paths,
+                     precision=precision, gram_precision=gram_precision, engine=engine,
+                     conv_vt_dtype=conv_vt_dtype, return_eig_info=return_eig_info)

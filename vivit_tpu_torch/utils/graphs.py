@@ -19,16 +19,15 @@ that the next replay cannot overwrite what a caller holds); generators
 registered with every graph and re-seeded before each replay, so that a
 replay draws what an eager call with the same seeds draws; and the
 kernels' launches captured in each graph, which every replay adds to their
-counters (``jacobi_cuda.LAUNCHES`` for the windows,
-``jacobi_leaf_cuda.LAUNCHES`` for the leaves and edge blocks,
-``token_expand.LAUNCHES`` for the token blocks' columns).
+counters (the ``LAUNCHES`` of each kernel module, which registers itself
+with :func:`count_launches`).
 
 Bodies nest.  Inside a running body :func:`run` captures nothing of its
 own: its ``fn`` runs inline, its draws from a generator of its own
 (:func:`generator`, seeded as an eager call seeds it), its eager steps
 become the outer body's, and it opens no cache entry.  Whole calls of the
-package's entry points are captured this way (:func:`stage`, keyed by
-:func:`entry_key`, routed by :func:`captured`): the V-transform, the Gram,
+package's entry points are captured this way (:func:`stage`, keyed and
+routed by :mod:`vivit_tpu_torch.engines`): the V-transform, the Gram,
 the chain-path solves and what follows them are one body.  What such a
 body needs from the host it takes through :func:`constant`, made once
 before the capture and held by the entry; a solve's guard hands its
@@ -42,23 +41,23 @@ so that the next eager step reads computed inputs; its result is the
 replays'.  It therefore launches every kernel twice.  A capture that fails
 raises; nothing runs the eager body in its place.
 
-Each entry keeps a memory pool at its call's peak.  An entry point's key
-(:func:`entry_key`) holds a module's tensors' addresses, and a capture at
-new addresses drops the entries of the same call at the old ones; beyond
+Each entry keeps a memory pool at its call's peak.  An entry point's key,
+``(family, addresses)``, holds a module's tensors' addresses, and a capture
+at new addresses drops the family's entries at the old ones; beyond
 that, like JAX's, the cache is unbounded, and :func:`clear`, the
 counterpart of ``jax.clear_caches()``, releases every pool.  One capture
 at a time, from one thread.
 """
 
+import sys
 import time
 
 import torch
 
-from vivit_tpu_torch.kernels import jacobi_cuda, jacobi_leaf_cuda, token_expand
-
-# the kernels' launch counters: a capture launches nothing, a replay adds
-# what its graphs captured
-_COUNTED = (jacobi_cuda, jacobi_leaf_cuda, token_expand)
+# the kernel modules whose ``LAUNCHES`` count their launches, in the order
+# they registered (:func:`count_launches`): a capture launches nothing, a
+# replay adds what its graphs captured
+_COUNTED = []
 _CACHE = {}
 _STREAMS = {}  # device -> the side stream of its warm-ups and captures
 _ACTIVE = None  # the Segments running a body, if any
@@ -280,6 +279,15 @@ class _Capture(Segments):
                 pass  # the capture was already invalidated; the failure is raised
 
 
+def count_launches(name):
+    """Register the kernel module ``name``, whose ``LAUNCHES`` its wrapper
+    adds each launch to: a capture then leaves it as it was, and every
+    replay adds the launches its graphs captured.  Each kernel module
+    registers itself when it is imported; an entry captured before a module
+    registered holds no launch of it."""
+    _COUNTED.append(sys.modules[name])
+
+
 def _launches():
     """Each kernel's launch count, in the order of :data:`_COUNTED`."""
     return tuple(kernel.LAUNCHES for kernel in _COUNTED)
@@ -350,141 +358,14 @@ def run(key, fn, inputs, seed):
     return clone(out)
 
 
-# the share of the card's memory above which a call's ``Vᵀ`` at f32 (Gram
-# side × parameters × 4 bytes) keeps it out of the graphs (:func:`captured`)
-CAPTURE_SHARE = 0.25
-
-
-def captured(X, mc_samples, solver, gram_side, numel=None):
-    """The route rule of the entry points: whether a call is captured.
-
-    A call is captured when all of these hold:
-
-    * its tensors are on CUDA (``X``; the parameters were checked to lie
-      with it);
-    * its loss factors are exact (``mc_samples == 0``): Monte-Carlo draws
-      come from CPU generators (:func:`vivit_tpu_torch.losses.sample_generator`);
-    * its ``Vᵀ`` at f32, ``4 · gram_side() · numel()`` bytes (``numel()``
-      the parameters it covers, where the caller gives it), is at most
-      :data:`CAPTURE_SHARE` of the card's memory.  A captured call's pool
-      keeps its peak for as long as the entry lives, beside the memory the
-      eager warm-up left in the allocator's cache, and the peak grows with
-      the columns times the parameters; the launches that a capture saves
-      do not grow with them, so at that size they are a small share of the
-      call.  3c3d at N=128 (a 1152-side Gram, 895,210 parameters: 4.1 GB)
-      is captured; ViT-S/16 at N=128 (1152, 21,669,514: 99.8 GB) runs
-      eagerly, its chain solve captured alone (on an 80 GB H100 its whole
-      call's capture runs out of memory after the warm-up; ``PERF.md``);
-    * every Gram solve stays on ``eigh_dc``'s chain path or does not run
-      it: ``solver`` other than ``"dc"`` (the vendor eigh, or LOBPCG as one
-      eager step), or ``gram_side()``, the side of the Gram it solves
-      (``(C−1)·S`` deflated, ``C·S`` not), below the strip threshold 1536.
-
-    Anything else runs eagerly, exactly as an uncaptured call does.  This
-    is a route, not a fallback: a captured call whose capture fails
-    raises.  :func:`stage` asks on each call of a key without an entry."""
-    if not X.is_cuda or mc_samples:
-        return False
-    side = gram_side()
-    if numel is not None and 4 * side * numel() > \
-            CAPTURE_SHARE * torch.cuda.get_device_properties(X.device).total_memory:
-        return False
-    if solver != "dc":
-        return True
-    from vivit_tpu_torch.eigdc import _STRIP_MIN
-
-    return side < _STRIP_MIN
-
-
-def param_count(params):
-    """The parameters (elements) of a ``{name: Tensor}`` dict."""
-    return sum(p.numel() for p in params.values())
-
-
-def gram_side(model_fn, params, X, subsampling, deflate):
-    """The side of the Gram a call solves, ``(C−1)·S`` with ``deflate``,
-    else ``C·S``: ``C`` from one forward of one sample, ``S`` the
-    ``subsampling`` count or the batch."""
-    with torch.no_grad():
-        c = model_fn(params, X[:1]).shape[-1]
-    return (c - bool(deflate)) * (X.shape[0] if subsampling is None else len(subsampling))
-
-
-class _Ref:
-    """An object in a key by identity.  The key holds it, so that its
-    ``id`` cannot pass to another object while the key lives."""
-
-    __slots__ = ("obj",)
-
-    def __init__(self, obj):
-        self.obj = obj
-
-    def __hash__(self):
-        return id(self.obj)
-
-    def __eq__(self, other):
-        return isinstance(other, _Ref) and other.obj is self.obj
-
-
-def _part(value):
-    """A setting as a hashable key part: sequences and dicts element by
-    element; a callable by its ``graph_key`` attribute where it has one
-    (:func:`~vivit_tpu_torch.optim.constant_damping` by its value), else by
-    identity."""
-    if isinstance(value, dict):
-        return tuple((k, _part(v)) for k, v in value.items())
-    if isinstance(value, (list, tuple, range)):
-        return tuple(_part(v) for v in value)
-    if callable(value) and not isinstance(value, type):
-        return getattr(value, "graph_key", None) or _Ref(value)
-    return value
-
-
-def _spec(t):
-    return tuple(t.shape), t.stride(), t.dtype, t.device
-
-
-def entry_key(name, model, params, X, y, loss, **settings):
-    """The cache key of one call of an entry point ``name``: ``(family,
-    addresses)``.
-
-    ``family`` holds the model by identity (:class:`_Ref`), each module's
-    type and mode, every parameter (a module's buffers too, a model
-    function's ``params``) by name with its shape, stride, dtype and device,
-    ``X``'s and ``y``'s, the loss's type and reduction (a custom loss's
-    function by identity), the cuDNN and TF32 flags and ``settings`` (see
-    :func:`_part`).  ``addresses`` are a module's tensors' ``data_ptr``s,
-    ``()`` for a model function.
-
-    A model function's ``params`` are static inputs, copied in before each
-    replay as ``X`` and ``y`` are (:func:`stage`): a new dict of the same
-    specs, as a functional update makes, replays.  A module's graphs read
-    its tensors in place: an in-place update (an optimizer step,
-    ``load_state_dict``) keeps the key, a replaced tensor changes the
-    addresses and captures anew, dropping the family's stale entry."""
-    from vivit_tpu_torch.engines import is_module
-
-    if is_module(model):
-        tensors = [*model.named_parameters(), *model.named_buffers()]
-        structure = tuple((type(m), m.training) for m in model.modules())
-        addresses = tuple(t.data_ptr() for _, t in tensors)
-    else:
-        tensors, structure, addresses = list(params.items()), (), ()
-    flags = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
-             torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
-    family = (name, _Ref(model), structure, tuple((n, *_spec(t)) for n, t in tensors),
-              _spec(X), _spec(y), type(loss), loss.reduction,
-              _part(getattr(loss, "_fn", None)), flags,
-              tuple((k, _part(v)) for k, v in sorted(settings.items())))
-    return family, addresses
-
-
 def stage(key, body, X, y, params, route):
     """``body(X, y, params)``, one program of an entry point: ``(outputs,
-    replayed)``.  ``key`` comes from :func:`entry_key`; ``params`` is a
-    model function's dict or ``None`` (a module's tensors, read in place).
+    replayed)``.  ``key`` is ``(family, addresses)`` and ``route()`` the
+    entry points' route rule, both from :func:`vivit_tpu_torch.engines.stage`;
+    ``params`` is a model function's dict or ``None`` (a module's tensors,
+    read in place).
 
-    A key without an entry asks ``route()`` (:func:`captured`) on each call.
+    A key without an entry asks ``route()`` on each call.
     Uncaptured, the body runs eagerly on the caller's tensors.  Captured,
     the first call captures it (:func:`run`'s warm-up and capture; ``X``,
     ``y`` and ``params``' tensors are its static inputs, copied in before
@@ -516,12 +397,6 @@ def stage(key, body, X, y, params, route):
     if entry.tripped():
         return body(X, y, params), False
     return out, True
-
-
-def entry(key, body, X, y, params, route):
-    """:func:`stage`'s outputs, cloned where they came from the graphs."""
-    out, replayed = stage(key, body, X, y, params, route)
-    return clone(out) if replayed else out
 
 
 def entries():
