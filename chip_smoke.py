@@ -170,20 +170,27 @@ Phases, each printed as it runs:
     replay of phases 3-15 (:func:`recording_eigh`, which runs the eager
     body once more for what the phases record) is held against its eager
     body: bit-equal, or within :data:`ENTRY_BAR` of it.
-17. **Three-pass products** (:func:`phase_three_pass`):
-    ``precision.matmul``'s ``"high"`` (three TF32 passes) against the f32
-    product, bf16_3x (the JAX package's ``"high"``: three bf16 products of
-    the operands' bf16 parts, f32 sums) and float64 at the strip basis's
+17. **Three-pass products** (:func:`phase_three_pass`): the kernel of
+    ``precision.matmul``'s ``"high"`` (``csrc/three_pass.cu``: three TF32
+    passes in one launch) on the strip path, one ``eigvalsh_dc`` of the
+    deflated N=512 Gram with the counters set to 0 just before it (its
+    launches equal to the engaged products); against the f32 product, its
+    plain version, the
+    cuBLAS passes it replaced (:func:`cublas_three_pass`, the ``library_ms``
+    yardstick), bf16_3x (the JAX package's ``"high"``: three bf16 products
+    of the operands' bf16 parts, f32 sums) and float64 at the strip basis's
     shapes (:data:`THREE_PASS_SHAPES`: 4608³ with distinct operands and as
-    a squaring, 4608×4608×2400, 2448³ as a squaring, a ``[2,1250,1250]``
-    batch): its error at most twice the f32 product's, and, where
-    the product engages (every side at least ``precision.THREE_PASS_MIN``),
-    its time below the f32 product's (CUDA events, median of 10); the sweep
-    of squares and ``[2, n, n]`` batches (:data:`THREE_PASS_SWEEP`) that
-    places the threshold, each size's times printed and each crossover
-    named; and the N=128 headline and ``eigh_topk`` calls, which reach no
-    ``"high"`` product (``THREE_PASS`` and ``THREE_PASS_DECLINED``
-    unchanged).
+    a squaring, 4608×4608×2400 and its ``Yᵀ Y`` on a transposed view,
+    2448³ as a squaring, a ``[2,1250,1250]`` batch): one launch, its error
+    at most twice the f32 product's, and,
+    where the product engages (every side at least
+    ``precision.THREE_PASS_MIN``), its time below the cuBLAS passes' and
+    the f32 product's (CUDA events, median of 10), each beside its bound;
+    the sweep of squares and ``[2, n, n]`` batches
+    (:data:`THREE_PASS_SWEEP`), the kernel against the f32 product, each
+    crossover named; and the N=128 headline and ``eigh_topk`` calls, which
+    reach no ``"high"`` product (``THREE_PASS``, ``THREE_PASS_DECLINED``
+    and the kernel's ``LAUNCHES`` unchanged).
 18. **Token expansion** (:func:`phase_token_expand`): the columns of
     ViT-S/16's token blocks at N=128 (:data:`TOKEN_LAYERS`, ``CF = 9``,
     ``T = 197``, random factors), one chunk of each layer as
@@ -224,18 +231,20 @@ import numpy as np
 
 N = 128
 NUM_CLASSES = 10
-# the three-pass product's shapes on the strip path at N=512 (label, a, b):
-# the root's squarings, a bulk child's panel, the zoom's squarings, a tree
+# the three-pass product's shapes on the strip path at N=512 (label, a, b;
+# b None: a squaring, a None: Yᵀ Y, a the transposed view of b): the root's
+# squarings, a bulk child's panel and its Yᵀ Y, the zoom's squarings, a tree
 # level's batch
 THREE_PASS_SHAPES = [("4608^3", (4608, 4608), (4608, 4608)),
                      ("4608^3 squaring", (4608, 4608), None),
                      ("4608x4608x2400", (4608, 4608), (4608, 2400)),
+                     ("Y^T Y 2400x4608x2400", None, (4608, 2400)),
                      ("2448^3 squaring", (2448, 2448), None),
                      ("[2,1250,1250]", (2, 1250, 1250), (2, 1250, 1250))]
 # the sizes n of the crossover sweep, of squares and of [2, n, n] batches
 THREE_PASS_SWEEP = (512, 768, 1024, 1280, 1536, 1792, 2048, 2448, 3072)
 # the kernels' sources under vivit_tpu_torch/csrc/, built at the start
-KERNEL_SOURCES = ("jacobi", "jacobi_leaf", "token_expand")
+KERNEL_SOURCES = ("jacobi", "jacobi_leaf", "token_expand", "three_pass")
 KERNEL_SHAPES = [(37, 32), (36, 32), (13, 32), (16, 48), (32, 64)]
 HEADLINE_SHAPES = [(37, 32), (36, 32)]  # the window solves of one n=1152 solve
 SWEEP_SHAPES = [(b, m) for m in (32, 48, 64)
@@ -1650,16 +1659,77 @@ def deterministic_cudnn():
         torch.backends.cudnn.deterministic = saved
 
 
+def three_pass_operands(a_shape, b_shape, generator):
+    """``(a, b)`` of a :data:`THREE_PASS_SHAPES` entry, normal draws on the
+    generator's card: ``b_shape`` None a squaring (``b is a``), ``a_shape``
+    None a ``Yᵀ Y`` (``a`` the transposed view of ``b``)."""
+    import torch
+
+    def draw(shape):
+        return torch.randn(shape, generator=generator, device=generator.device)
+
+    if a_shape is None:
+        b = draw(b_shape)
+        return b.mT, b
+    a = draw(a_shape)
+    return a, (a if b_shape is None else draw(b_shape))
+
+
+def cublas_three_pass(a, b):
+    """The three TF32 passes as cuBLAS ran them before the kernel: each
+    operand split (``precision.tf32_split``, copies in device memory),
+    ``hi·lo`` and ``lo·hi``, then ``hi·hi`` in k-chunks of 384, summed into
+    one f32 output with TF32 on: phase 17's ``library_ms`` yardstick, which
+    the port never calls."""
+    import torch
+
+    from vivit_tpu_torch.precision import tf32_split
+
+    hi_b, lo_b = tf32_split(b)
+    hi_a, lo_a = (hi_b, lo_b) if a is b else tf32_split(a)
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        out = torch.matmul(hi_a, lo_b)
+        out += torch.matmul(lo_a, hi_b)
+        for k0 in range(0, a.shape[-1], 384):
+            out += torch.matmul(hi_a[..., k0:k0 + 384], hi_b[..., k0:k0 + 384, :])
+        return out
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+
+
 def phase_three_pass(model):
-    """Phase 17: the three-pass TF32 product against the f32 product and
-    float64 (module docstring); returns the crossovers of the sweep."""
+    """Phase 17: the three-pass kernel against the f32 product, its plain
+    version, the cuBLAS passes and float64 (module docstring); returns its
+    rows of the kernels line: the strip path's, then one a shape."""
     import torch
 
     import vivit_tpu_torch as vtt
-    from vivit_tpu_torch import precision
+    from vivit_tpu_torch import eigdc, precision
+    from vivit_tpu_torch.kernels import three_pass as tp
     from vivit_tpu_torch.precision import full_f32
 
     gen = torch.Generator(device="cuda").manual_seed(0)
+    loss = vtt.CrossEntropyLoss("mean")
+
+    # the strip path: one eigvalsh_dc of the deflated N=512 Gram, the
+    # counters set to 0 just before it
+    _, _, H = deflated_gram(model, loss, *port_batch(N_LARGE))
+    torch.cuda.synchronize()
+    precision.THREE_PASS = precision.THREE_PASS_DECLINED = tp.LAUNCHES = 0
+    t0 = time.perf_counter()
+    eigdc.eigvalsh_dc(H)
+    torch.cuda.synchronize()
+    solve_ms = (time.perf_counter() - t0) * 1e3
+    engaged, declined, launches = precision.THREE_PASS, precision.THREE_PASS_DECLINED, tp.LAUNCHES
+    print(f"three-pass strip path, eigvalsh_dc {tuple(H.shape)}: {engaged} products engaged, "
+          f"{launches} kernel launches, {declined} declined; {solve_ms:.1f} ms", flush=True)
+    check(engaged > 0 and launches == engaged,
+          f"strip path: {launches} kernel launches for {engaged} engaged products")
+    rows = [{"path": f"eigvalsh_dc N={N_LARGE} (strip path, one solve)", "launches": launches,
+             "engaged": engaged, "declined": declined, "solve_ms": solve_ms}]
+    del H
 
     def bf16x3(a, b):
         """The JAX package's ``"high"`` in the card's terms, for its error."""
@@ -1671,71 +1741,94 @@ def phase_three_pass(model):
                                     for x, y in zip(p, q)]) for p, q in parts)
         return sum(torch.mm(x, y, out_dtype=torch.float32) for x, y in parts)
 
-    def operands(a_shape, b_shape):
-        a = torch.randn(a_shape, generator=gen, device="cuda")
-        return a, (a if b_shape is None else torch.randn(b_shape, generator=gen, device="cuda"))
+    def rel(x, ref):
+        return float(torch.linalg.vector_norm((x.double() - ref).flatten())
+                     / torch.linalg.vector_norm(ref.flatten()))
 
-    def timed(a, b):
-        """(f32 ms, three-pass ms), in turns, each the median of 10."""
+    def timed(a, b, cublas=True):
+        """(f32 ms, kernel ms, cuBLAS passes ms), in turns, each the median
+        of 10 (the cuBLAS passes left out of the sweep)."""
         with full_f32():
             f32 = [cuda_ms(lambda: a @ b, 5) for _ in range(2)]
-            tp = [cuda_ms(lambda: precision.matmul(a, b, "high"), 5) for _ in range(2)]
-        return float(np.median(f32)), float(np.median(tp))
+            kernel = [cuda_ms(lambda: tp.three_pass_cuda(a, b), 5) for _ in range(2)]
+            lib = [cuda_ms(lambda: cublas_three_pass(a, b), 5) for _ in range(2)] if cublas else [0]
+        return float(np.median(f32)), float(np.median(kernel)), float(np.median(lib))
 
-    saved = precision.THREE_PASS_MIN
-    precision.THREE_PASS_MIN = 0  # every product engages: the sweep times both
-    slower = []  # engaged shapes where the three passes lose
-    try:
-        for label, a_shape, b_shape in THREE_PASS_SHAPES:
-            a, b = operands(a_shape, b_shape)
-            ref = a.double() @ b.double()
-            with full_f32():
-                errs = [float(torch.linalg.vector_norm((x.double() - ref).flatten())
-                              / torch.linalg.vector_norm(ref.flatten()))
-                        for x in (a @ b, precision.matmul(a, b, "high"), bf16x3(a, b))]
-            f32_ms, tp_ms = timed(a, b)
-            m, k, n = a.shape[-2], a.shape[-1], b.shape[-1]
-            flops = 2.0 * m * n * k * (a.shape[0] if a.dim() == 3 else 1)
-            print(f"three-pass {label}: error vs float64 {errs[1]:.3e} (f32 {errs[0]:.3e}, "
-                  f"ratio {errs[1] / errs[0]:.3f}; bf16_3x {errs[2]:.3e}); f32 {f32_ms:.4f} ms "
-                  f"({flops / f32_ms / 1e9:.1f} TFLOP/s), three passes {tp_ms:.4f} ms "
-                  f"({flops / tp_ms / 1e9:.1f} TFLOP/s), {f32_ms / tp_ms:.3f}x", flush=True)
-            check(errs[1] <= 2 * errs[0],
-                  f"three-pass {label}: error {errs[1]:.3e}, the f32 product's {errs[0]:.3e}")
-            if min(m, k, n) >= saved and tp_ms >= f32_ms:
-                slower.append(f"{label}: {tp_ms:.4f} ms, f32 {f32_ms:.4f} ms")
-            del a, b, ref
-        crossovers = {}
-        for batch in ((), (2,)):
-            wins = []
-            for n in THREE_PASS_SWEEP:
-                a, b = operands(batch + (n, n), batch + (n, n))
-                f32_ms, tp_ms = timed(a, b)
-                wins.append(tp_ms < f32_ms)
-                print(f"three-pass sweep {list(batch + (n, n))}: f32 {f32_ms:.4f} ms, three "
-                      f"passes {tp_ms:.4f} ms, {f32_ms / tp_ms:.3f}x", flush=True)
-            # the least size from which the three passes win at every larger size swept
-            losing = [n for n, w in zip(THREE_PASS_SWEEP, wins) if not w]
-            crossovers[f"{list(batch + ('n', 'n'))}"] = next(
-                (n for n in THREE_PASS_SWEEP if not losing or n > max(losing)), None)
-    finally:
-        precision.THREE_PASS_MIN = saved
-    print(f"three-pass crossovers: {crossovers}; THREE_PASS_MIN {saved}, THREE_PASS_CHUNK "
-          f"{precision.THREE_PASS_CHUNK}", flush=True)
-    check(not slower, f"three passes slower where they engage: {slower}")
+    slower = []  # engaged shapes where the kernel loses
+    for label, a_shape, b_shape in THREE_PASS_SHAPES:
+        a, b = three_pass_operands(a_shape, b_shape, gen)
+        ref = a.double() @ b.double()
+        before = tp.LAUNCHES
+        got = tp.three_pass_cuda(a, b)
+        torch.cuda.synchronize()
+        launches = tp.LAUNCHES - before
+        with full_f32():
+            t0 = time.perf_counter()
+            plain = tp.three_pass_plain(a, b)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            errs = [rel(x, ref) for x in (a @ b, got, bf16x3(a, b), cublas_three_pass(a, b))]
+        vs_plain = rel(got, plain.double())
+        f32_ms, ms, lib_ms = timed(a, b)
+        m, k, n = a.shape[-2], a.shape[-1], b.shape[-1]
+        batch = a.shape[0] if a.dim() == 3 else 1
+        flops = 2.0 * m * n * k * batch
+        # the least time: three TF32 passes at the peak, or the operands in
+        # and the output out once
+        bound_ops = 3 * flops / PEAK_TF32_FLOPS * 1e3
+        bound_bytes = 4.0 * batch * (m * k + k * n + m * n) / PEAK_BYTES * 1e3
+        print(f"three-pass {label}: kernel {launches} launch, error vs float64 {errs[1]:.3e} "
+              f"(f32 {errs[0]:.3e}, ratio {errs[1] / errs[0]:.3f}; cuBLAS passes {errs[3]:.3e}; "
+              f"bf16_3x {errs[2]:.3e}); vs its plain version {vs_plain:.3e}; kernel {ms:.4f} ms "
+              f"({3 * flops / ms / 1e9:.1f} TFLOP/s of TF32, bound {max(bound_ops, bound_bytes):.4f}"
+              f" ms by {'operations' if bound_ops >= bound_bytes else 'bytes'}), cuBLAS passes "
+              f"{lib_ms:.4f} ms, f32 {f32_ms:.4f} ms ({flops / f32_ms / 1e9:.1f} TFLOP/s), plain "
+              f"{plain_ms:.1f} ms; kernel {lib_ms / ms:.3f}x the cuBLAS passes, "
+              f"{f32_ms / ms:.3f}x f32", flush=True)
+        check(launches == 1, f"three-pass {label}: {launches} kernel launches")
+        check(errs[1] <= 2 * errs[0],
+              f"three-pass {label}: error {errs[1]:.3e}, the f32 product's {errs[0]:.3e}")
+        check(vs_plain <= 4 * errs[0],
+              f"three-pass {label}: {vs_plain:.3e} off its plain version")
+        if min(m, k, n) >= precision.THREE_PASS_MIN and not (ms < lib_ms and ms < f32_ms):
+            slower.append(f"{label}: {ms:.4f} ms, cuBLAS passes {lib_ms:.4f} ms, f32 "
+                          f"{f32_ms:.4f} ms")
+        rows.append({"path": f"one call, {label}", "launches": launches, "ms": ms,
+                     "plain_ms": plain_ms,
+                     "bound_ms": max(bound_ops, bound_bytes),
+                     "bound_by": "operations" if bound_ops >= bound_bytes else "bytes",
+                     "library_ms": lib_ms, "f32_ms": f32_ms, "error": errs[1],
+                     "f32_error": errs[0]})
+        del a, b, ref, got, plain
+    check(not slower, f"the kernel no faster where the product engages: {slower}")
 
-    loss = vtt.CrossEntropyLoss("mean")
+    crossovers = {}
+    for batch in ((), (2,)):
+        wins = []
+        for n in THREE_PASS_SWEEP:
+            a, b = three_pass_operands(batch + (n, n), batch + (n, n), gen)
+            f32_ms, ms, _ = timed(a, b, cublas=False)
+            wins.append(ms < f32_ms)
+            print(f"three-pass sweep {list(batch + (n, n))}: f32 {f32_ms:.4f} ms, kernel "
+                  f"{ms:.4f} ms, {f32_ms / ms:.3f}x", flush=True)
+        # the least size from which the kernel wins at every larger size swept
+        losing = [n for n, w in zip(THREE_PASS_SWEEP, wins) if not w]
+        crossovers[f"{list(batch + ('n', 'n'))}"] = next(
+            (n for n in THREE_PASS_SWEEP if not losing or n > max(losing)), None)
+    print(f"three-pass kernel crossovers against the f32 product: {crossovers}; "
+          f"THREE_PASS_MIN {precision.THREE_PASS_MIN}", flush=True)
+
     X, y = port_batch(N)
-    before = (precision.THREE_PASS, precision.THREE_PASS_DECLINED)
+    before = (precision.THREE_PASS, precision.THREE_PASS_DECLINED, tp.LAUNCHES)
     with deterministic_cudnn():
         vtt.eigvalsh_structured(model, loss, X, y, eig_backend="dc", **HEADLINE)
         vtt.eigh_topk(model, loss, X, y, TOP_K, solver="dc", **HEADLINE)
     torch.cuda.synchronize()
-    after = (precision.THREE_PASS, precision.THREE_PASS_DECLINED)
-    print(f"three-pass counters over the N={N} headline and eigh_topk: {before} -> {after}",
-          flush=True)
+    after = (precision.THREE_PASS, precision.THREE_PASS_DECLINED, tp.LAUNCHES)
+    print(f"three-pass counters (engaged, declined, kernel launches) over the N={N} headline "
+          f"and eigh_topk: {before} -> {after}", flush=True)
     check(after == before, f"an N={N} call reached a \"high\" product: {before} -> {after}")
-    return crossovers
+    return rows
 
 
 def phase_token_expand():
@@ -3688,7 +3781,7 @@ def main():
         phase_graphs(jc)
         phase_entry_graphs(jc)
         release_graphs("the three-pass phase")
-        phase_three_pass(port_model())
+        three_pass_rows = phase_three_pass(port_model())
         token_rows = phase_token_expand()
     except SmokeFailure as exc:
         print(f"chip_smoke: FAIL: {exc}", file=sys.stderr)
@@ -3745,6 +3838,11 @@ def main():
     kernels += [{"name": "token_expand_kernel", "route": "cuda",
                  "source": "vivit_tpu_torch/csrc/token_expand.cu", "replaces": None, **row}
                 for row in token_rows]
+    # the strip path's launches over one solve, then one call (time, bound)
+    # of each of the strip basis's shapes
+    kernels += [{"name": "three_pass_kernel", "route": "cuda",
+                 "source": "vivit_tpu_torch/csrc/three_pass.cu", "replaces": None, **row}
+                for row in three_pass_rows]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"command time: {time.perf_counter() - started:.1f} s (from the start of main)",
           flush=True)

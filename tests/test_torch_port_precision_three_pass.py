@@ -1,6 +1,7 @@
 """``precision.matmul``'s three-pass TF32 product (``"high"``) on the CPU,
-where the same passes run in f32: the split, the product's error
-against float64 beside the f32 product's, and where ``eigh_dc`` engages it
+where the kernel's plain version runs the same passes in f32: the split,
+the product's error against float64 beside the f32 product's, and where
+``eigh_dc`` engages it
 (the strip path's basis) or keeps the f32 product (the chain path's
 defaults, KPM's thin products).  ``precision.THREE_PASS_MIN`` is lowered so
 that products at these sizes reach the three passes.
@@ -95,8 +96,8 @@ def _operands(case):
         return Y.mT, Y
     shapes = {"square": ((320, 320), (320, 320)), "panel": ((320, 320), (320, 160)),
               "batched": ((2, 250, 250), (2, 250, 250)),
-              "chunked": ((320, 320), (320, 320)),
-              "chunked batch": ((2, 250, 250), (2, 250, 250))}[case]
+              "ragged k": ((320, 333), (333, 320)),
+              "ragged k batch": ((2, 250, 261), (2, 261, 250))}[case]
     return _randn(*shapes[0], seed=1), _randn(*shapes[1], seed=2)
 
 
@@ -106,14 +107,13 @@ def _rel_err(x, ref):
 
 
 @pytest.mark.parametrize("case", ["square", "panel", "batched", "squaring", "gram",
-                                  "chunked", "chunked batch"])
-def test_three_pass_error_within_twice_f32(case, low_threshold, monkeypatch):
+                                  "ragged k", "ragged k batch"])
+def test_three_pass_error_within_twice_f32(case, low_threshold):
     """At the strip basis's shapes cut to size (a square, a panel like
     4608×4608×2400, a ``[2, k, k]`` tree level, ``X @ X`` and ``Yᵀ Y`` with
-    one split, and ``hi·hi`` in three chunks): the three passes are at most
-    twice the f32 product's error against float64, and count once."""
-    if case.startswith("chunked"):
-        monkeypatch.setattr(precision, "THREE_PASS_CHUNK", 100)
+    one split, and ``k`` off the 32 positions a sum is promoted after): the
+    three passes are at most twice the f32 product's error against float64,
+    and count once."""
     a, b = _operands(case)
     before = _counts()
     got = precision.matmul(a, b, "high")

@@ -8,22 +8,25 @@ on one CUDA card.
 
 Without options:
 
-1. ``chip_smoke.py``'s phase 17: the three passes against the f32 product
-   and float64 at the strip basis's shapes, the square sweep that places
-   ``precision.THREE_PASS_MIN``, and the N=128 calls that reach no
-   ``"high"`` product.
+1. ``chip_smoke.py``'s phase 17: the kernel (``csrc/three_pass.cu``) on
+   one strip-path solve, then against the f32 product, its plain version,
+   the cuBLAS passes it replaced and float64 at the strip basis's shapes,
+   the square sweep
+   against the f32 product, and the N=128 calls that reach no ``"high"``
+   product.
 2. On the deflated N=512 Gram of CIFAR-10 3c3d (the smoke's weights and
    data, 4608²), one ``eigvalsh_dc`` call: the ``"high"`` products that
-   engaged and declined, and the share of the basis's product flops that
-   engaged (``torch.utils.flop_counter`` over ``eigh_dc``'s basis; an
-   engaged product counts once, not as its three passes).
-3. The same solve with the three passes (``THREE_PASS_MIN`` and
-   ``THREE_PASS_CHUNK`` as set), with the threshold at each of
-   :data:`THRESHOLDS`, with the three passes' ``hi·hi`` in chunks of each
-   of :data:`CHUNKS`, and with every product in f32 (the threshold out of reach), in turns: the
-   call's time (host clock, synchronized), its peak of allocated memory,
-   its worst error against float64 over the bars of the smoke (rtol 1e-4,
-   atol 5e-6·λmax) and the guard's verdict.
+   engaged and declined, the kernel's launches (one an engaged product),
+   how many engaged products take a transposed view (``Yᵀ Y``), and the
+   share of the basis's product flops that engaged
+   (``torch.utils.flop_counter`` over ``eigh_dc``'s basis; an engaged
+   product counts once, not as its three passes).
+3. The same solve with the three passes (``THREE_PASS_MIN`` as set), with
+   the threshold at each of :data:`THRESHOLDS`, and with every product in
+   f32 (the threshold out of reach), in turns: the call's time (host
+   clock, synchronized), its peak of allocated memory, its worst error
+   against float64 over the bars of the smoke (rtol 1e-4, atol
+   5e-6·λmax) and the guard's verdict.
 
 ``--dump FILE`` saves the results of the default N=128 entries
 (``eigvalsh_structured`` and ``eigh_topk`` with the smoke's headline
@@ -44,8 +47,6 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 # the thresholds timed beside the one set: the sizes of the strip basis's
 # products at N=512 lie at 4608, 2448, 1300 and below
 THRESHOLDS = (2049, 2449)
-# the chunk caps timed beside the one set (10**9: one chunk)
-CHUNKS = (2304, 10 ** 9)
 
 
 def n128_results():
@@ -94,16 +95,20 @@ def compare(a, b):
 
 
 def basis_share(H):
-    """``(engaged, declined, engaged share of the basis's product flops)``
-    of one ``eigvalsh_dc(H)`` call."""
+    """``(engaged, declined, kernel launches, engaged products whose ``a`` is
+    a transposed view (``Yᵀ Y``; the wrapper copies it row-major), engaged
+    share of the basis's product flops, the basis's product flops)`` of one
+    ``eigvalsh_dc(H)`` call."""
     import torch
     from torch.utils.flop_counter import FlopCounterMode
 
     from vivit_tpu_torch import eigdc, precision
+    from vivit_tpu_torch.kernels import three_pass
 
     counter = FlopCounterMode(display=False)
-    # [engaged flops, what the counter gave the engaged products' passes]
-    engaged = [0.0, 0.0]
+    # [engaged flops, what the counter gave the engaged products' passes,
+    # engaged products of a transposed a]
+    engaged = [0.0, 0.0, 0]
     mm, basis = eigdc._mm, eigdc._basis
 
     def counted(a, b, prec=None):
@@ -113,6 +118,7 @@ def basis_share(H):
             batch = a.shape[0] if a.dim() == 3 else 1
             engaged[0] += 2.0 * batch * a.shape[-2] * a.shape[-1] * b.shape[-1]
             engaged[1] += counter.get_total_flops() - passes
+            engaged[2] += a.stride(-1) != 1
         return out
 
     def root_counted(H, count, gen, depth, cfg):
@@ -121,7 +127,7 @@ def basis_share(H):
         with counter:
             return basis(H, count, gen, depth, cfg)
 
-    counts = (precision.THREE_PASS, precision.THREE_PASS_DECLINED)
+    counts = (precision.THREE_PASS, precision.THREE_PASS_DECLINED, three_pass.LAUNCHES)
     eigdc._mm, eigdc._basis = counted, root_counted
     try:
         eigdc.eigvalsh_dc(H)
@@ -131,7 +137,7 @@ def basis_share(H):
     # an engaged product counts once, whatever the counter made of its passes
     logical = counter.get_total_flops() - engaged[1] + engaged[0]
     return (precision.THREE_PASS - counts[0], precision.THREE_PASS_DECLINED - counts[1],
-            engaged[0] / logical, logical)
+            three_pass.LAUNCHES - counts[2], engaged[2], engaged[0] / logical, logical)
 
 
 def solve_in_turns(H, rounds=3):
@@ -142,16 +148,15 @@ def solve_in_turns(H, rounds=3):
 
     ref = torch.linalg.eigvalsh(H.double())
     tol = ATOL * ref.abs().max() + RTOL * ref.abs()
-    saved = precision.THREE_PASS_MIN, precision.THREE_PASS_CHUNK
+    saved = precision.THREE_PASS_MIN
     arms = {"three passes": saved,
-            **{f"three passes from {t}": (t, saved[1]) for t in THRESHOLDS if t != saved[0]},
-            **{f"three passes, chunks of {c}": (saved[0], c) for c in CHUNKS},
-            "f32": (10 ** 9, saved[1])}
+            **{f"three passes from {t}": t for t in THRESHOLDS if t != saved},
+            "f32": 10 ** 9}
     rows = {label: [] for label in arms}
     try:
         for _ in range(rounds):
             for label, arm in arms.items():
-                precision.THREE_PASS_MIN, precision.THREE_PASS_CHUNK = arm
+                precision.THREE_PASS_MIN = arm
                 torch.cuda.synchronize()
                 torch.cuda.reset_peak_memory_stats()
                 t0 = time.perf_counter()
@@ -162,7 +167,7 @@ def solve_in_turns(H, rounds=3):
                 rows[label].append((ms, torch.cuda.max_memory_allocated() / 1e9, ratio,
                                     bool(info["tripped"]), float(info["bound"])))
     finally:
-        precision.THREE_PASS_MIN, precision.THREE_PASS_CHUNK = saved
+        precision.THREE_PASS_MIN = saved
     for label, runs in rows.items():
         ms = [r[0] for r in runs]
         print(f"eigvalsh_dc {tuple(H.shape)} {label}: {np.median(ms):.2f} ms median "
@@ -204,11 +209,16 @@ def main():
     X, y = port_batch(N_LARGE)
     _, _, H = deflated_gram(model, vtt.CrossEntropyLoss("mean"), X, y)
     del model, X, y
-    engaged, declined, share, logical = basis_share(H)
+    engaged, declined, launches, transposed, share, logical = basis_share(H)
     print(f"eigvalsh_dc {tuple(H.shape)}: THREE_PASS_MIN {precision.THREE_PASS_MIN}, "
-          f"{engaged} products engaged, {declined} declined "
+          f"{engaged} products engaged ({launches} kernel launches, {transposed} of a "
+          f"transposed a, copied row-major), {declined} declined "
           f"(hit share {engaged / max(engaged + declined, 1):.4f}); the basis's products "
           f"{logical / 1e12:.3f} TFLOP, engaged {share:.4f} of them", flush=True)
+    if launches != engaged:
+        print(f"torch_three_pass: {launches} kernel launches for {engaged} engaged products",
+              file=sys.stderr)
+        return 1
     solve_in_turns(H)
     return 0
 

@@ -5,7 +5,7 @@ full f32 by default, but f32 convolutions go through cuDNN in TF32, which
 keeps about three decimal digits; :func:`full_f32` turns off both.  JAX
 ``"high"`` is bf16_3x, ~1e-5 relative.  Its counterpart here is
 :func:`matmul`'s three-pass TF32 product, within twice the f32
-product's error on an H100, which
+product's error at the strip basis's shapes on an H100, which
 ``eigh_dc``'s basis takes at ``"high"`` (its ``basis_prec``,
 ``deskew_prec`` and ``q_prec``).  As a pipeline-wide name
 (:func:`matmul_precision`), ``"high"`` runs in full f32.
@@ -16,7 +16,6 @@ contraction (``None`` = full f32).  ``"bf16"`` rounds the operands to bf16
 and keeps an f32 result.
 """
 
-import math
 from contextlib import contextmanager
 
 import torch
@@ -59,22 +58,12 @@ def matmul_precision(precision):
 
 
 # the least side (m, n and k) of a "high" product that runs as three TF32
-# passes (:func:`matmul`): below it the f32 product is as fast as the three
-# passes, their splits and their chunks.  An H100's crossover for n³
-# products lies at 2048 (0.75x at 1536, 0.92x at 1792, 1.07x at 2048, 1.03x
-# at 2448, 1.28x at 3072); [2, n, n] batches cross near it and less
-# steadily (1.04x at 1536, 0.95x at 2048, 0.94x at 2448, 1.32x at 3072)
+# passes (:func:`matmul`).  Placed on an H100 where cuBLAS's three passes,
+# their splits and their k-chunks crossed the f32 product (1.07x at 2048
+# for n³ products).  The kernel that runs them now crosses it at 1280 for
+# n³ products (1.2-1.5x there, 1.6x at 2048) and at 768 for [2, n, n]
+# batches (1.0-1.3x there, 1.9-2.0x at 2048): a lower threshold would engage more
 THREE_PASS_MIN = 2048
-# the longest sum that one TF32 pass of hi·hi takes (:func:`matmul`).  On an
-# H100 a TF32 pass's error grows with the sum's length, not its root, as
-# rounding toward zero at each step would: three unchunked passes at 4608³
-# read 4.5x the f32 product's error against float64 and 8.8x at
-# 4608×4608×2400 (whose f32 product reads half the square's).  Each chunk's
-# sum is added to the output in f32, so the error falls with the chunk: at
-# 384 the three passes read 0.77x the f32 product's at 4608³, 1.54x at
-# 4608×4608×2400, 1.04x at 2448³ (random operands), within twice the f32
-# product's at every shape of the strip basis
-THREE_PASS_CHUNK = 384
 # "high" products run as three TF32 passes, and those kept in f32 by shape,
 # since the last reset (``THREE_PASS = 0``).  A replay of captured CUDA
 # graphs makes no Python call and adds nothing
@@ -92,25 +81,20 @@ def tf32_split(x: torch.Tensor):
     return hi, x - hi
 
 
-def _transposed(a, b):
-    """Whether ``a`` is a view of ``b`` with its last two axes swapped."""
-    return (a.data_ptr() == b.data_ptr() and a.shape == b.mT.shape
-            and a.stride() == b.mT.stride())
-
-
 def matmul(a: torch.Tensor, b: torch.Tensor, precision=None) -> torch.Tensor:
     """``a @ b`` of f32 operands at a JAX precision name, the counterpart
     of the JAX package's ``_mm(a, b, prec)`` (``vivit_tpu/eigdc.py``).
 
     ``"high"`` with every side (``m``, ``n``, ``k``) at least
     :data:`THREE_PASS_MIN` runs as three TF32 products, 2-D or equal-batch
-    3-D: each operand split once (``hi`` its TF32 rounding, ``lo`` the exact
-    rest: :func:`tf32_split`), ``hi·lo + lo·hi`` first and ``hi·hi`` last, in
-    ``k``-chunks of at most :data:`THREE_PASS_CHUNK`, summed in f32 into one
-    output (β = 1), with TF32 on around these calls alone.  On the card the tensor cores
-    multiply ``hi`` exactly and ``lo`` cut to TF32; the error is that of
-    their sums, which the chunks keep within twice the f32 product's error;
-    on the CPU the same passes run in f32.
+    3-D (:mod:`vivit_tpu_torch.kernels.three_pass`): each operand split
+    once (``hi`` its TF32 rounding, ``lo`` the exact rest:
+    :func:`tf32_split`), ``lo·hi + hi·lo + hi·hi`` of every 32 positions of
+    ``k`` summed in f32 and added to the output.  On a CUDA card that is one
+    launch of a hand-written Hopper kernel, which splits on chip; on the
+    CPU its plain version.  The tensor cores multiply ``hi`` exactly and
+    ``lo`` cut to TF32; the short sums keep the product within twice the
+    f32 product's error at the strip basis's shapes on an H100.
     A thinner ``"high"`` product, and every other name, runs ``a @ b``.
     Each ``"high"`` product adds one to :data:`THREE_PASS` or to
     :data:`THREE_PASS_DECLINED`.
@@ -122,31 +106,12 @@ def matmul(a: torch.Tensor, b: torch.Tensor, precision=None) -> torch.Tensor:
         THREE_PASS_DECLINED += 1
         return a @ b
     THREE_PASS += 1
-    hi_b, lo_b = tf32_split(b)
-    if a is b:
-        hi_a, lo_a = hi_b, lo_b
-    elif _transposed(a, b):
-        hi_a, lo_a = hi_b.mT, lo_b.mT
-    else:
-        hi_a, lo_a = tf32_split(a)
-    k = a.shape[-1]
-    # as few chunks as the cap allows, each but the last a multiple of 128
-    # (cuBLAS runs chunks of 350 well below the speed of chunks of 384)
-    step = min(THREE_PASS_CHUNK, -(-math.ceil(k / math.ceil(k / THREE_PASS_CHUNK)) // 128) * 128)
-    saved = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = True
-    try:
-        if a.dim() == 2:
-            out = torch.mm(hi_a, lo_b).addmm_(lo_a, hi_b)
-            add = out.addmm_
-        else:
-            out = torch.bmm(hi_a, lo_b).baddbmm_(lo_a, hi_b)
-            add = out.baddbmm_
-        for k0 in range(0, k, step):
-            add(hi_a[..., k0:k0 + step], hi_b[..., k0:k0 + step, :])
-        return out
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = saved
+    # imported here: the kernel's module imports this one
+    from vivit_tpu_torch.kernels import three_pass
+
+    if a.is_cuda:
+        return three_pass.three_pass_cuda(a, b)
+    return three_pass.three_pass_plain(a, b)
 
 
 # f32 contractions longer than this run in blocks of it (:func:`dot_t`)
