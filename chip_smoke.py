@@ -206,7 +206,15 @@ Phases, each printed as it runs:
     ``TokenFactor.gram`` per layer under ``torch.profiler``, behind
     :data:`TOKEN_LEAD` spin kernels: the kernel's executions in the trace
     equal to ``LAUNCHES`` and to the chunks, one a chunk, the Gram
-    bit-equal to an unprofiled one; a small ViT's
+    bit-equal to an unprofiled one.  The same checks (:func:`token_chunk`)
+    at the LM cell's chunks (:data:`TOKEN_LM_LAYERS`: Moonlight-16B-A3B, 16
+    columns over 2,048 positions, where ``z``'s rows leave shared memory
+    and each chunk takes one launch a range of :data:`TOKEN_ROWS`
+    positions, counted), then at an expert's block over per-sample segments
+    padded with zero rows, from the routing a recorded forward of the
+    network's first two layers gives (:func:`lm_routed_samples`), also
+    held to the ragged segments' float64 block; each shape's time a query
+    for both routes.  Last, a small ViT's
     ``eigvalsh_structured`` captured and replayed (:func:`token_capture`):
     the kernel inside the graph, its launches counted by each replay, the
     replay equal to the eager body.
@@ -272,6 +280,24 @@ LOBPCG_ITERS = 100  # topk_eigh's default lobpcg_iters
 # sample, T = 197 positions
 TOKEN_LAYERS = [("qkv", 384, 1152), ("proj", 384, 384), ("fc1", 384, 1536), ("fc2", 1536, 384)]
 TOKEN_CF, TOKEN_T, TOKEN_DEPTH = 9, 197, 12
+# Moonlight-16B-A3B's token blocks at the benchmark's LM cell (16 sequences
+# of 2,048 tokens, one Monte-Carlo draw: 16 columns): (name, in, out, blocks
+# of that shape a query in the dense layer and the four MoE layers), the
+# flattened batch's, then the held experts' (8 a MoE layer) over per-sample
+# segments of the rows routed to them
+TOKEN_LM_LAYERS = [("q_proj", 2048, 3072, 5), ("kv_a_proj_with_mqa", 2048, 576, 5),
+                   ("kv_b_proj", 512, 4096, 5), ("o_proj", 2048, 2048, 5),
+                   ("dense gate_proj/up_proj", 2048, 11264, 2),
+                   ("dense down_proj", 11264, 2048, 1),
+                   ("shared gate_proj/up_proj", 2048, 2816, 8),
+                   ("shared down_proj", 2816, 2048, 4), ("gate (router)", 2048, 64, 4),
+                   ("lm_head", 2048, 20480, 1)]
+TOKEN_LM_ROUTED = [("gate_proj/up_proj", 2048, 1408, 64), ("down_proj", 1408, 2048, 32)]
+TOKEN_LM_S, TOKEN_LM_T, TOKEN_LM_CF = 16, 2048, 1
+# the positions one launch of the token expansion takes at each block width
+# (``csrc/token_expand.cu``: ``z``'s rows in shared memory); longer
+# contractions run as several launches, each adding into the chunk
+TOKEN_ROWS = {192: 240, 128: 296}
 PEAK_TF32_FLOPS = 495e12  # H100 SXM, dense (NVIDIA data sheet)
 # the least share of the kernel's bf16 roundings equal to the f32 bmm's
 TOKEN_BF16_EQUAL = 0.999
@@ -1831,24 +1857,95 @@ def phase_three_pass(model):
     return rows
 
 
-def phase_token_expand():
-    """Phase 18: the token expansion's kernel against the f32 ``bmm``, its
-    plain version and float64 at ViT-S/16's chunks (module docstring);
-    returns its rows of the kernels line, one a layer."""
+def token_chunk(label, leaf, c, per_query):
+    """One chunk ``c`` of token block ``leaf`` (random factors on the card):
+    the f32 ``bmm`` of ``TokenFactor.expand`` (TF32 off) timed first, then
+    the kernel (its first call, its launches: one a range of
+    :data:`TOKEN_ROWS` positions; its time and bound), its plain version,
+    their errors against float64 and the bf16 roundings against the
+    ``bmm``'s, held to the bars of the module docstring; ``per_query``
+    chunks of this shape a query.  Returns its row of the kernels line."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from vivit_tpu_torch.kernels import token_expand as te
     from vivit_tpu_torch.precision import full_f32
-    from vivit_tpu_torch.structured import TokenFactor
 
     def rel(x, ref):
         return float(torch.linalg.vector_norm((x.double() - ref).flatten())
                      / torch.linalg.vector_norm(ref.flatten()))
 
+    cf, s, t, _ = leaf.delta.shape
+    cols, oc, ic = leaf.num_cols, c[1] - c[0], c[3] - c[2]
+    ranges = -(-t // TOKEN_ROWS[te._width(ic)])
+
+    def kernel():
+        return te.token_expand_cuda(leaf.z, leaf.delta, *c)
+
+    with full_f32():  # the route before the kernel, timed first
+        bmm_ms = cuda_ms(lambda: leaf.expand(*c), 5)
+        bmm = leaf.expand(*c).flatten(0, 1)
+    before = te.LAUNCHES
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = kernel()
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = te.LAUNCHES - before
+    check(launches == ranges, f"token {label}: {launches} launches, not {ranges}")
+    kernel_ms = cuda_ms(kernel, 10)
+    with full_f32():
+        plain_ms = cuda_ms(lambda: te.token_expand_plain(leaf.z, leaf.delta, *c), 2,
+                           warmup=1)
+        plain = te.token_expand_plain(leaf.z, leaf.delta, *c)
+    d, z = leaf.delta[..., c[0]:c[1]].double(), leaf.z[..., c[2]:c[3]].double()
+    ref = torch.einsum("cnpo,npi->cnoi", d, z).flatten(0, 1)
+    del d, z
+    err, err_bmm, err_plain = rel(got, ref), rel(bmm, ref), rel(plain, ref)
+    vs_plain = rel(got, plain.double())
+    del plain
+    share = float((got.bfloat16() != bmm.bfloat16()).double().mean())
+    apart, apart_f32 = te.bf16_apart(got, bmm), te.bf16_apart(bmm, ref)
+    floor = float(apart.max()) if apart.numel() else 0.0
+    f32_err = float((bmm.double() - ref).abs().max())
+    del got, bmm, ref
+    flops = 3 * 2.0 * cols * t * oc * ic
+    nbytes = 4.0 * (cols * oc * ic + cf * s * t * oc + s * t * ic)
+    bound_ms = max(flops / PEAK_TF32_FLOPS, nbytes / PEAK_BYTES) * 1e3
+    print(f"token expansion {label}: chunk [{cols}, {oc}, {ic}] over {t} positions, "
+          f"{per_query} a query; f32 bmm {bmm_ms:.4f} ms; kernel {kernel_ms:.4f} ms "
+          f"({flops / kernel_ms / 1e9:.1f} TFLOP/s TF32, {bmm_ms / kernel_ms:.3f}x the "
+          f"bmm; {launches} launches), first call {first_s:.2f} s; bound {bound_ms:.4f} ms "
+          f"({'operations' if flops / PEAK_TF32_FLOPS >= nbytes / PEAK_BYTES else 'bytes'}"
+          f", {100 * bound_ms / kernel_ms:.1f}%); plain {plain_ms:.2f} ms; error vs "
+          f"float64 {err:.3e} (bmm {err_bmm:.3e}, ratio {err / err_bmm:.3f}; plain "
+          f"{err_plain:.3e}); kernel vs plain {vs_plain:.3e}; bf16 roundings that "
+          f"differ {100 * share:.4f}%, {apart.numel()} of them not neighbours, all of "
+          f"|x| <= {floor:.3e} (2^8 x the bmm's largest error: {2 ** 8 * f32_err:.3e}; "
+          f"bmm against float64: {apart_f32.numel()} not neighbours)", flush=True)
+    check(err <= 2 * err_bmm, f"token {label}: error {err:.3e}, the bmm's {err_bmm:.3e}")
+    check(vs_plain <= 4 * err_bmm, f"token {label}: {vs_plain:.3e} off its plain version")
+    check(share <= 1 - TOKEN_BF16_EQUAL and floor <= 2 ** 8 * f32_err,
+          f"token {label}: {100 * share:.4f}% of bf16 roundings differ, non-neighbours up "
+          f"to |x| {floor:.3e}")
+    return {"launches": launches, "chunk": [cols, oc, ic], "positions": t,
+            "per_query": per_query, "ms": kernel_ms, "plain_ms": plain_ms,
+            "library_ms": bmm_ms, "bound_ms": bound_ms, "rel_err": err,
+            "bmm_rel_err": err_bmm, "bf16_differ_share": share}
+
+
+def phase_token_expand():
+    """Phase 18: the token expansion's kernel against the f32 ``bmm``, its
+    plain version and float64 at ViT-S/16's and Moonlight-16B-A3B's chunks
+    (module docstring); returns its rows of the kernels line, one a layer."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from vivit_tpu_torch.kernels import token_expand as te
+    from vivit_tpu_torch.structured import TokenFactor
+
     gen = torch.Generator(device="cuda").manual_seed(0)
-    rows, query = [], {"bmm_ms": 0.0, "kernel_ms": 0.0, "bound_ms": 0.0}
+    rows = []
     for name, i, o in TOKEN_LAYERS:
         leaf = TokenFactor(
             z=torch.randn((N, TOKEN_T, i), generator=gen, device="cuda"),
@@ -1856,62 +1953,8 @@ def phase_token_expand():
         chunks = leaf._chunks()
         check(len({(o1 - o0, i1 - i0) for o0, o1, i0, i1 in chunks}) == 1,
               f"token {name}: chunks of several shapes {chunks}")
-        c = chunks[0]
-        cols, oc, ic = leaf.num_cols, c[1] - c[0], c[3] - c[2]
-
-        def kernel():
-            return te.token_expand_cuda(leaf.z, leaf.delta, *c)
-
-        with full_f32():  # the route before the kernel, timed first
-            bmm_ms = cuda_ms(lambda: leaf.expand(*c), 5)
-            bmm = leaf.expand(*c).flatten(0, 1)
-        before = te.LAUNCHES
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        got = kernel()
-        torch.cuda.synchronize()
-        first_s = time.perf_counter() - t0
-        check(te.LAUNCHES == before + 1, f"token {name}: {te.LAUNCHES - before} launches")
-        kernel_ms = cuda_ms(kernel, 10)
-        with full_f32():
-            plain_ms = cuda_ms(lambda: te.token_expand_plain(leaf.z, leaf.delta, *c), 2,
-                               warmup=1)
-            plain = te.token_expand_plain(leaf.z, leaf.delta, *c)
-        d, z = leaf.delta[..., c[0]:c[1]].double(), leaf.z[..., c[2]:c[3]].double()
-        ref = torch.einsum("cnpo,npi->cnoi", d, z).flatten(0, 1)
-        del d, z
-        err, err_bmm, err_plain = rel(got, ref), rel(bmm, ref), rel(plain, ref)
-        vs_plain = rel(got, plain.double())
-        del plain
-        share = float((got.bfloat16() != bmm.bfloat16()).double().mean())
-        apart, apart_f32 = te.bf16_apart(got, bmm), te.bf16_apart(bmm, ref)
-        floor = float(apart.max()) if apart.numel() else 0.0
-        f32_err = float((bmm.double() - ref).abs().max())
-        del got, bmm
-        flops = 3 * 2.0 * cols * TOKEN_T * oc * ic
-        nbytes = 4.0 * (cols * oc * ic + TOKEN_CF * N * TOKEN_T * oc + N * TOKEN_T * ic)
-        bound_ms = max(flops / PEAK_TF32_FLOPS, nbytes / PEAK_BYTES) * 1e3
-        per_query = len(chunks) * TOKEN_DEPTH
-        query["bmm_ms"] += bmm_ms * per_query
-        query["kernel_ms"] += kernel_ms * per_query
-        query["bound_ms"] += bound_ms * per_query
-        print(f"token expansion {name} (in {i}, out {o}): chunk [{cols}, {oc}, {ic}] x "
-              f"{len(chunks)}; f32 bmm {bmm_ms:.4f} ms; kernel {kernel_ms:.4f} ms "
-              f"({flops / kernel_ms / 1e9:.1f} TFLOP/s TF32, {bmm_ms / kernel_ms:.3f}x the "
-              f"bmm), first call {first_s:.2f} s; bound {bound_ms:.4f} ms "
-              f"({'operations' if flops / PEAK_TF32_FLOPS >= nbytes / PEAK_BYTES else 'bytes'}"
-              f", {100 * bound_ms / kernel_ms:.1f}%); plain {plain_ms:.2f} ms; error vs "
-              f"float64 {err:.3e} (bmm {err_bmm:.3e}, ratio {err / err_bmm:.3f}; plain "
-              f"{err_plain:.3e}); kernel vs plain {vs_plain:.3e}; bf16 roundings that "
-              f"differ {100 * share:.4f}%, {apart.numel()} of them not neighbours, all of "
-              f"|x| <= {floor:.3e} (2^8 x the bmm's largest error: {2 ** 8 * f32_err:.3e}; "
-              f"bmm against float64: {apart_f32.numel()} not neighbours)", flush=True)
-        del ref
-        check(err <= 2 * err_bmm, f"token {name}: error {err:.3e}, the bmm's {err_bmm:.3e}")
-        check(vs_plain <= 4 * err_bmm, f"token {name}: {vs_plain:.3e} off its plain version")
-        check(share <= 1 - TOKEN_BF16_EQUAL and floor <= 2 ** 8 * f32_err,
-              f"token {name}: {100 * share:.4f}% of bf16 roundings differ, non-neighbours up "
-              f"to |x| {floor:.3e}")
+        row = token_chunk(f"{name} (in {i}, out {o})", leaf, chunks[0],
+                          len(chunks) * TOKEN_DEPTH)
 
         want = leaf.gram(torch.bfloat16)
         before = te.LAUNCHES
@@ -1933,17 +1976,125 @@ def phase_token_expand():
         check(launches == traced == len(chunks) and same,
               f"token {name}: launches {launches}, traced {traced}, chunks {len(chunks)}, "
               f"equal to an unprofiled Gram {same}")
-        rows.append({"path": f"TokenFactor.gram ViT-S/16 {name} N={N}", "launches": len(chunks),
-                     "chunk": [cols, oc, ic], "ms": kernel_ms, "plain_ms": plain_ms,
-                     "library_ms": bmm_ms, "bound_ms": bound_ms, "rel_err": err,
-                     "bmm_rel_err": err_bmm, "bf16_differ_share": share})
+        rows.append({"path": f"TokenFactor.gram ViT-S/16 {name} N={N}", **row})
         del leaf
         torch.cuda.empty_cache()
-    print(f"token expansion a query (12 blocks): f32 bmm {query['bmm_ms']:.2f} ms, kernel "
-          f"{query['kernel_ms']:.2f} ms, bound {query['bound_ms']:.2f} ms "
-          f"({100 * query['bound_ms'] / query['kernel_ms']:.1f}%)", flush=True)
-    check(query["kernel_ms"] < query["bmm_ms"], f"token expansion: {query}")
+    query = token_query("ViT-S/16, 12 blocks", rows)
+    check(query["ms"] < query["library_ms"], f"token expansion ViT-S/16: {query}")
+    rows += token_lm()
     token_capture()
+    return rows
+
+
+def token_query(label, rows):
+    """The kernel's, the ``bmm``'s and the bound's time a query, each
+    chunk's times its count a query, printed and returned."""
+    query = {key: sum(r[key] * r["per_query"] for r in rows)
+             for key in ("library_ms", "ms", "bound_ms")}
+    print(f"token expansion a query ({label}): f32 bmm {query['library_ms']:.2f} ms, kernel "
+          f"{query['ms']:.2f} ms, bound {query['bound_ms']:.2f} ms "
+          f"({100 * query['bound_ms'] / query['ms']:.1f}%)", flush=True)
+    return query
+
+
+def bench_module(kind, name):
+    """``benchmark/<kind>/<name>``: a network module (``.py``) loaded by
+    path, or a configuration (``.json``) read."""
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "benchmark", kind, name)
+    if name.endswith(".json"):
+        with open(path) as f:
+            return json.load(f)
+    spec = importlib.util.spec_from_file_location(f"bench_{kind}_{name[:-3]}", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def lm_routed_samples():
+    """The samples of the rows that the first MoE layer of Moonlight-16B-A3B
+    (``benchmark/networks/moonlight.py`` at the LM cell's configuration,
+    cut to its first two layers, weights drawn from seed 0) routes to
+    expert 0 on a batch of :data:`TOKEN_LM_S` × :data:`TOKEN_LM_T` normals:
+    a recorded routing, ``[rows]`` of sample ids."""
+    import torch
+
+    from vivit_tpu_torch.precision import full_f32
+
+    moonlight = bench_module("networks", "moonlight.py")
+    cfg = {**bench_module("configs", "moonlight_16b_a3b_l5_e8.json"), "num_hidden_layers": 2}
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    net = moonlight.build(cfg, torch.device("cuda"), gen)
+    X = torch.randn((TOKEN_LM_S, TOKEN_LM_T), generator=gen, device="cuda")
+    with full_f32(), torch.no_grad():
+        net(X)
+    choice = net.routing["recorded"][0]
+    del net
+    torch.cuda.empty_cache()
+    tokens = (choice == 0).any(dim=-1).nonzero().squeeze(-1)
+    return tokens // TOKEN_LM_T
+
+
+def token_lm():
+    """Phase 18 at the LM cell: the first chunk of each token block shape
+    (:data:`TOKEN_LM_LAYERS`, 16 columns over 2,048 positions: the kernel's
+    range loop), then an expert's block over the per-sample segments of a
+    recorded routing (:func:`lm_routed_samples`), padded with zero rows to
+    the longest (``structured.routed_factor``), also held to the float64
+    block of the ragged segments; each a row of the kernels line."""
+    import torch
+
+    from vivit_tpu_torch import structured
+    from vivit_tpu_torch.kernels import token_expand as te
+    from vivit_tpu_torch.structured import TokenFactor
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    s, t, cf = TOKEN_LM_S, TOKEN_LM_T, TOKEN_LM_CF
+    rows = []
+    for name, i, o, blocks in TOKEN_LM_LAYERS:
+        leaf = TokenFactor(
+            z=torch.randn((s, t, i), generator=gen, device="cuda"),
+            delta=1e-3 * torch.randn((cf, s, t, o), generator=gen, device="cuda"))
+        chunks = leaf._chunks()
+        row = token_chunk(f"Moonlight {name} (in {i}, out {o})", leaf, chunks[0],
+                          len(chunks) * blocks)
+        rows.append({"path": f"TokenFactor.gram Moonlight-16B-A3B {name} S={s} T={t}", **row})
+        del leaf
+        torch.cuda.empty_cache()
+
+    sample = lm_routed_samples()
+    counts = torch.bincount(sample, minlength=s)
+    longest = int(counts.max())
+    print(f"token expansion Moonlight routed: expert 0 of the first MoE layer takes "
+          f"{sample.numel()} rows, {int(counts.min())}-{longest} a sample", flush=True)
+    check(int(counts.min()) < longest, f"routed segments of one length {longest}: no padding")
+    for name, i, o, blocks in TOKEN_LM_ROUTED:
+        z = torch.randn((sample.numel(), i), generator=gen, device="cuda")
+        delta = 1e-3 * torch.randn((cf, sample.numel(), o), generator=gen, device="cuda")
+        leaf = structured.routed_factor(z, delta, sample, s)
+        check(tuple(leaf.z.shape) == (s, longest, i), f"routed {name}: {tuple(leaf.z.shape)}")
+        c = leaf._chunks()[0]
+        check(c == (0, o, 0, i), f"routed {name}: chunks {leaf._chunks()}")
+        row = token_chunk(f"Moonlight routed {name} (in {i}, out {o})", leaf, c, blocks)
+        # the ragged segments in float64: the padded rows add nothing
+        got = te.token_expand_cuda(leaf.z, leaf.delta, *c).double().view(cf, s, o, i)
+        ragged = torch.stack([torch.einsum("cro,ri->coi", delta[:, sample == n].double(),
+                                           z[sample == n].double()) for n in range(s)], 1)
+        gap = float(torch.linalg.vector_norm((got - ragged).flatten())
+                    / torch.linalg.vector_norm(ragged.flatten()))
+        del got, ragged
+        print(f"token expansion Moonlight routed {name}: padded block against the ragged "
+              f"segments' float64 {gap:.3e} (the padded float64's {row['rel_err']:.3e})",
+              flush=True)
+        check(gap <= 2 * row["bmm_rel_err"], f"routed {name}: {gap:.3e} off the ragged block")
+        rows.append({"path": f"RoutedFactor.gram Moonlight-16B-A3B expert {name} S={s} "
+                             f"L={longest}", **row, "ragged_rel_err": gap})
+        del leaf, z, delta
+        torch.cuda.empty_cache()
+    token_query("Moonlight-16B-A3B, 40 token blocks and 96 routed blocks at one segment length",
+                rows)
     return rows
 
 
@@ -1958,9 +2109,6 @@ def token_capture():
     chunk; :data:`structured.TOKEN_BLOCKS`), then captured and
     replayed, each replay adding the captured launches to ``LAUNCHES``
     (registered with ``graphs.count_launches``) and equal to the eager body."""
-    import importlib.util
-    import os
-
     import torch
 
     import vivit_tpu_torch as vtt
@@ -1968,11 +2116,7 @@ def token_capture():
     from vivit_tpu_torch.kernels import token_expand as te
     from vivit_tpu_torch.utils import graphs
 
-    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "benchmark", "networks",
-                        "vit.py")
-    spec = importlib.util.spec_from_file_location("bench_networks_vit", path)
-    vit = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(vit)
+    vit = bench_module("networks", "vit.py")
     gen = torch.Generator(device="cuda").manual_seed(7)
     net = vit.build(TOKEN_VIT, torch.device("cuda"), gen)
     X = torch.randn((16, *TOKEN_VIT["image"]), generator=gen, device="cuda")
@@ -3834,7 +3978,8 @@ def main():
             "replaces": "vivit_tpu/eigdc.py:360"}
     # times: the sums over the path's leaf and edge batches of one solve
     kernels += [{**leaf, "path": path, **row} for path, row in LEAF_ROWS.items()]
-    # times: one chunk; a layer's Gram launches once a chunk
+    # times: one chunk; a layer's Gram launches once a chunk and range of
+    # positions (``launches``: one chunk's)
     kernels += [{"name": "token_expand_kernel", "route": "cuda",
                  "source": "vivit_tpu_torch/csrc/token_expand.cu", "replaces": None, **row}
                 for row in token_rows]

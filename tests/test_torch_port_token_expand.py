@@ -3,24 +3,42 @@
 version against a float64 expansion at ragged shapes, its split, and the
 route of :meth:`TokenFactor.gram` (the CPU keeps ``torch.bmm`` bit for bit
 at every operand dtype; f32 factors off the CPU reach the kernel's wrapper,
-at every operand dtype, and never ``TokenFactor.expand``).  The kernel
-itself runs on the card only:
+at every operand dtype, and never ``TokenFactor.expand``), and the chunks
+the benchmark's cells hand the kernel.  The kernel itself runs on the card
+only, at ragged shapes and at the cells' chunks: ViT-S/16's, and
+Moonlight-16B-A3B's over 2,048 positions (its range loop) and over the
+zero-padded per-sample segments of a recorded routing:
 
     python3 -m pytest tests/test_torch_port_token_expand.py -m card --noconftest -q
 """
+
+import importlib.util
+import json
+import os
 
 import pytest
 import torch
 
 from vivit_tpu_torch import structured
 from vivit_tpu_torch.kernels import token_expand as te
-from vivit_tpu_torch.precision import _K_BLOCK, gram, tf32_split
+from vivit_tpu_torch.precision import gram_blocked, tf32_split
 from vivit_tpu_torch.structured import TokenFactor
 
 # ViT-S/16's token Linear layers (in, out) and their chunks at N=128, CF=9
 # (``TokenFactor._chunks`` at ``TOKEN_CHUNK_BYTES``): qkv, proj, fc1, fc2
 VIT_LAYERS = {"qkv": (384, 1152), "proj": (384, 384), "fc1": (384, 1536), "fc2": (1536, 384)}
 VIT_T, VIT_S, VIT_CF = 197, 128, 9
+# Moonlight-16B-A3B's token Linear layers (in, out) at the LM cell: 16
+# sequences of 2,048 tokens, one Monte-Carlo draw; the dense MLP's gate and
+# up projections share a shape
+LM_LAYERS = {"q_proj": (2048, 3072), "kv_b_proj": (512, 4096), "o_proj": (2048, 2048),
+             "dense_up_proj": (2048, 11264), "dense_down_proj": (11264, 2048),
+             "lm_head": (2048, 20480)}
+LM_T, LM_S, LM_CF = 2048, 16, 1
+# the positions one launch takes at each block width (``z``'s rows in shared
+# memory); a longer contraction runs as one launch a range
+ROWS = {192: 240, 128: 296}
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _factor(t, i, o, cf, s, seed=0, dtype=torch.float32, device="cpu"):
@@ -115,9 +133,7 @@ def _chunked_gram(leaf, precision, expand):
         flat = expand(o0, o1, i0, i1).reshape(n, -1)
         if precision is not None:
             flat = flat.to(precision)
-        for k0 in range(0, flat.shape[1], _K_BLOCK):
-            g = gram(flat[:, k0:k0 + _K_BLOCK], precision)
-            out = g if out is None else out.add_(g)
+        out = gram_blocked(flat, precision, out)
     return out
 
 
@@ -175,6 +191,25 @@ def test_vit_chunks_are_the_kernels_shapes():
     assert widths == {"qkv": 192, "proj": 192, "fc1": 128, "fc2": 128}
     for name, ((oc, ic),) in shapes.items():
         assert oc % 64 == 0 and ic % widths[name] == 0
+
+
+def test_lm_chunks_take_the_range_loop():
+    """The chunks ``TokenFactor.gram`` hands the kernel at the LM cell: 16
+    columns, so whole layers or halves and thirds of the widest (the dense
+    MLP's, the head's), each over 2,048 positions, more than one launch
+    takes at its block width."""
+    shapes = {}
+    for name, (i, o) in LM_LAYERS.items():
+        leaf = TokenFactor(z=torch.empty((LM_S, LM_T, i), device="meta"),
+                           delta=torch.empty((LM_CF, LM_S, LM_T, o), device="meta"))
+        assert leaf._flops()[0] < leaf._flops()[1]
+        shapes[name] = {(o1 - o0, i1 - i0) for o0, o1, i0, i1 in leaf._chunks()}
+        for _, ic in shapes[name]:
+            assert -(-LM_T // ROWS[te._width(ic)]) >= 7
+    assert shapes == {"q_proj": {(3072, 2048)}, "kv_b_proj": {(4096, 512)},
+                      "o_proj": {(2048, 2048)}, "dense_up_proj": {(11264, 1024)},
+                      "dense_down_proj": {(2048, 5632)},
+                      "lm_head": {(20480, 683), (20480, 682)}}
 
 
 @pytest.mark.parametrize("ic,width", [(1, 128), (64, 128), (65, 128), (100, 128), (130, 192),
@@ -255,3 +290,88 @@ def test_kernel_at_ragged_shapes(card, t, i, o, cf, s, chunk, launches):
     err, err_bmm, vs_plain, _, _, ran = _against_bmm(leaf, chunk, card)
     assert ran == launches
     assert err <= 2 * err_bmm and vs_plain <= 4 * err_bmm
+
+
+def _card_factor(t, i, o, cf, s, seed, card):
+    """Random f32 factors drawn on the card (the LM's are too large to draw
+    in float64 on the host)."""
+    gen = torch.Generator(device=card).manual_seed(seed)
+    return TokenFactor(z=torch.randn((s, t, i), generator=gen, device=card),
+                       delta=1e-3 * torch.randn((cf, s, t, o), generator=gen, device=card))
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("layer", sorted(LM_LAYERS))
+def test_kernel_at_lm_chunks(card, layer):
+    """At the LM cell's first chunk of each layer, 2,048 positions: the
+    bars of :func:`test_kernel_against_plain_and_float64`, one launch a
+    range of positions."""
+    i, o = LM_LAYERS[layer]
+    leaf = _card_factor(LM_T, i, o, LM_CF, LM_S, i + o, card)
+    chunk = leaf._chunks()[0]
+    err, err_bmm, vs_plain, share, one_ulp, launches = _against_bmm(leaf, chunk, card)
+    assert launches == -(-LM_T // ROWS[te._width(chunk[3] - chunk[2])])
+    assert err <= 2 * err_bmm and vs_plain <= 4 * err_bmm
+    assert share <= 1e-3 and one_ulp
+
+
+@pytest.fixture(scope="module")
+def recorded_samples():
+    """:func:`_recorded_samples` on the first CUDA card; skips the tests
+    where there is none."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA card: the kernel runs on the card only")
+    return _recorded_samples(torch.device("cuda", 0))
+
+
+def _recorded_samples(card):
+    """The samples of the rows that the first MoE layer of the LM cell's
+    network (``benchmark/networks/moonlight.py`` at its configuration, cut
+    to its first two layers, weights from seed 0) routes to expert 0 on
+    16 × 2,048 normals."""
+    path = os.path.join(REPO, "benchmark", "networks", "moonlight.py")
+    spec = importlib.util.spec_from_file_location("bench_networks_moonlight_card", path)
+    moon = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(moon)
+    with open(os.path.join(REPO, "benchmark", "configs", "moonlight_16b_a3b_l5_e8.json")) as f:
+        cfg = {**json.load(f), "num_hidden_layers": 2}
+    gen = torch.Generator(device=card).manual_seed(0)
+    net = moon.build(cfg, card, gen)
+    X = torch.randn((LM_S, LM_T), generator=gen, device=card)
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            net(X)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    tokens = (net.routing["recorded"][0] == 0).any(dim=-1).nonzero().squeeze(-1)
+    return tokens // LM_T
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("i,o", [(2048, 1408), (1408, 2048)])
+def test_kernel_at_routed_segments(card, recorded_samples, i, o):
+    """An expert's block (its gate/up and down projections) over the
+    per-sample segments of a recorded routing, padded with zero rows to the
+    longest: the bars of :func:`test_kernel_against_plain_and_float64`, and
+    the block within twice the ``bmm``'s error of the ragged segments'
+    float64 block."""
+    sample = recorded_samples
+    counts = torch.bincount(sample, minlength=LM_S)
+    assert int(counts.min()) < int(counts.max())
+    gen = torch.Generator(device=card).manual_seed(i)
+    z = torch.randn((sample.numel(), i), generator=gen, device=card)
+    delta = 1e-3 * torch.randn((LM_CF, sample.numel(), o), generator=gen, device=card)
+    leaf = structured.routed_factor(z, delta, sample, LM_S)
+    assert leaf.z.shape == (LM_S, int(counts.max()), i)
+    chunk = leaf._chunks()[0]
+    assert chunk == (0, o, 0, i)
+    err, err_bmm, vs_plain, share, one_ulp, launches = _against_bmm(leaf, chunk, card)
+    assert launches == -(-leaf.z.shape[1] // ROWS[te._width(i)])
+    assert err <= 2 * err_bmm and vs_plain <= 4 * err_bmm
+    assert share <= 1e-3 and one_ulp
+    got = te.token_expand_cuda(leaf.z, leaf.delta, *chunk).double().view(LM_CF, LM_S, o, i)
+    ragged = torch.stack([torch.einsum("cro,ri->coi", delta[:, sample == n].double(),
+                                       z[sample == n].double()) for n in range(LM_S)], 1)
+    assert _rel(got, ragged) <= 2 * err_bmm

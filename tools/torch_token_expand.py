@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """The token blocks' columns on the tensor cores
 (``vivit_tpu_torch/csrc/token_expand.cu``) at ViT-S/16's chunk shapes
-(N=128, ``CF = 9``, ``T = 197``; qkv, proj, fc1, fc2), on one CUDA card.
+(N=128, ``CF = 9``, ``T = 197``; qkv, proj, fc1, fc2) and at
+Moonlight-16B-A3B's (16 columns over 2,048 positions; an expert's zero-padded
+per-sample segments from a recorded routing), on one CUDA card.
 
     PYTHONPATH=. python3 tools/torch_token_expand.py
 
@@ -12,7 +14,9 @@ kernel's time beside its bound and its plain version's, the errors of kernel
 and ``bmm`` against float64, the share of their bf16 roundings that differ,
 and a bf16 ``TokenFactor.gram`` under the profiler with its launches equal
 to ``LAUNCHES``; each route's time a query (the layers' chunks in 12
-blocks).  Prints the kernels' rows as one JSON line last.
+blocks); the same checks at the LM's chunks, their launches one a range
+of positions; the routed block also against its ragged segments in
+float64.  Prints the kernels' rows as one JSON line last.
 """
 
 import json

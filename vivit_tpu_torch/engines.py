@@ -100,10 +100,11 @@ def build_vt(model, loss, params, X, y, *, engine: str = "tapped",
 
 def vt_is_mixed(vt: Dict[str, Any]) -> bool:
     """Whether the ``Vᵀ`` dict carries factored (non-tensor) leaves."""
-    from vivit_tpu_torch.structured import DenseFactor, TokenFactor
+    from vivit_tpu_torch.structured import DenseFactor, EmbeddingFactor, TokenFactor
     from vivit_tpu_torch.tapped import ConvVT
 
-    return any(isinstance(leaf, (DenseFactor, TokenFactor, ConvVT)) for leaf in vt.values())
+    return any(isinstance(leaf, (DenseFactor, TokenFactor, EmbeddingFactor, ConvVT))
+               for leaf in vt.values())
 
 
 def gram_any(vt, paths=None, precision=None) -> torch.Tensor:

@@ -45,8 +45,9 @@ def _sample_ids(X, subsampling, sample_ids):
 def loss_hessian_sqrt(loss: Loss, f: torch.Tensor, y: torch.Tensor,
                       mc_samples: int = 0, key: Optional[int] = None,
                       sample_ids=None) -> torch.Tensor:
-    """Per-sample loss-Hessian square-root factors ``[S, CF, C]``: exact
-    (``mc_samples == 0``, ``CF = C``) or Monte-Carlo (``CF = M``), whose
+    """Per-sample loss-Hessian square-root factors ``[S, CF, C]`` (``[S,
+    CF, T, V]`` over sequence logits): exact (``mc_samples == 0``, ``CF =
+    C``, or ``T·V``) or Monte-Carlo (``CF = M``), whose
     draws are a function of ``(key, sample_ids[n])`` only
     (:mod:`vivit_tpu_torch.losses`), so any sub-batch or layout of the same
     samples draws the same numbers."""
@@ -64,7 +65,8 @@ def v_factors(loss: Loss, f: torch.Tensor, y: torch.Tensor, *, batch_size: int,
               mc_samples: int = 0, key: Optional[int] = None, sample_ids=None,
               column_scale: Optional[float] = None,
               deflate_ce_null: bool = False) -> torch.Tensor:
-    """Scaled (optionally CE-deflated) loss factors ``[S, CF', C]``.
+    """Scaled (optionally CE-deflated) loss factors ``[S, CF', C]``, or
+    ``[S, CF, T, V]`` over sequence logits ``[S, T, V]``.
 
     The shared front half of every V-transform engine: the loss-Hessian
     square roots (:func:`loss_hessian_sqrt`), the column scale
@@ -73,11 +75,16 @@ def v_factors(loss: Loss, f: torch.Tensor, y: torch.Tensor, *, batch_size: int,
     complement (``CF' = C − 1``).  The projection runs in full f32.
     """
     S = f.shape[0]
+    if deflate_ce_null and f.dim() > 2:
+        raise ValueError("CE null-space deflation takes [S, C] logits, got "
+                         f"{tuple(f.shape)}")
     factors = loss_hessian_sqrt(loss, f, y, mc_samples=mc_samples, key=key,
                                 sample_ids=sample_ids)
     if column_scale is None:
         column_scale = (loss.rho(batch_size) * batch_size / S) ** 0.5
-    factors = factors * column_scale
+    # sequence factors ([S, CF, T, V]) are scaled in place: they are fresh
+    # and as large as the logits
+    factors = factors.mul_(column_scale) if f.dim() > 2 else factors * column_scale
     if deflate_ce_null:
         from vivit_tpu_torch.deflate import ce_null_complement
         from vivit_tpu_torch.precision import full_f32

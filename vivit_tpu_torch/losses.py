@@ -4,7 +4,11 @@
 Conventions as in the JAX package: the per-sample loss ``ℓ_n`` is the loss
 of the single sample, and the total loss is ``L = ρ Σ_n ℓ_n`` with
 ``ρ = 1/N`` (mean) or ``1`` (sum).  Functions take batched tensors: the
-model output ``f`` is ``[S, C]``.
+model output ``f`` is ``[S, C]``.  :class:`CrossEntropyLoss` also takes a
+sequence of positions per sample, logits ``[S, T, V]`` and targets
+``[S, T]``: ``ℓ_n`` sums the positions' losses, divided by ``T`` under
+``"mean"``, so that ``L`` is the mean over the ``S·T`` tokens, as a causal
+language model's loss is; ``ρ`` keeps its meaning.
 
 Monte-Carlo factors come in two steps, so that a draw can be replayed:
 :meth:`Loss.mc_draws` makes the random part of each sample from a CPU
@@ -25,6 +29,8 @@ import torch.nn.functional as F
 from vivit_tpu_torch.utils.graphs import eager
 
 _MASK64 = (1 << 64) - 1
+# the largest float64 CDF over a chunk of positions that the sequence draws form
+CDF_CHUNK_BYTES = 1 << 29
 
 
 def sample_generator(key: int, sample_id: int) -> torch.Generator:
@@ -158,37 +164,85 @@ class CrossEntropyLoss(Loss):
 
     Per-sample Hessian w.r.t. the logits: ``diag(p) − p pᵀ`` with
     ``p = softmax(f)``; exact factor rows ``s_c = √p_c (e_c − p)``.
+
+    Over a sequence, logits ``[S, T, V]`` (module docstring), the
+    per-sample Hessian is block-diagonal over the positions, each block
+    ``h (diag p_t − p_t p_tᵀ)`` with ``h = 1/T`` (mean) or ``1`` (sum):
+    exact factors ``[S, T·V, T, V]``, row ``(t, c)`` zero off position
+    ``t``; Monte-Carlo factors ``[S, M, T, V]``, one label a (sample, draw,
+    position).
     """
+
+    def _h(self, f) -> float:
+        """The positions' weight ``h`` in ``ℓ_n``: ``1/T`` (mean over a
+        sequence of ``T``), else 1."""
+        t = f[0, ..., 0].numel() if f.dim() > 2 else 1
+        return 1.0 / t if self.reduction == "mean" else 1.0
 
     def per_sample(self, f, y):
         logp = F.log_softmax(f, dim=-1)
-        return -logp.gather(-1, y.long()[:, None])[:, 0]
+        if f.dim() == 2:
+            return -logp.gather(-1, y.long()[:, None])[:, 0]
+        ell = -logp.gather(-1, y.long()[..., None])[..., 0]
+        return self._h(f) * ell.reshape(f.shape[0], -1).sum(dim=1)
 
     def sqrt_hessian(self, f, y):
         p = torch.softmax(f, dim=-1)
         eye = torch.eye(f.shape[-1], dtype=f.dtype, device=f.device)
-        return p.sqrt()[..., :, None] * (eye - p[..., None, :])
+        root = p.sqrt()[..., :, None] * (eye - p[..., None, :])
+        if f.dim() == 2:
+            return root
+        # [S, T, V, V] → rows (t, c) of [S, T·V, T, V], zero off position t
+        s, t, v = f.shape
+        out = f.new_zeros((s, t, v, t, v))
+        out.diagonal(dim1=1, dim2=3).copy_(root.permute(0, 2, 3, 1))
+        return self._h(f) ** 0.5 * out.reshape(s, t * v, t, v)
 
     def mc_draws(self, f, y, mc_samples, key, sample_ids):
-        """Sampled labels ``[S, M]`` from ``softmax(f)``: per-sample uniforms
-        inverted through the cumulative probabilities."""
+        """Sampled labels from ``softmax(f)``: per-sample uniforms inverted
+        through the cumulative probabilities, ``[S, M]``, or ``[S, M, T]``
+        over a sequence (the float64 CDF formed a chunk of positions at a
+        time, at most :data:`CDF_CHUNK_BYTES`)."""
+        if f.dim() == 2:
+            u = _per_sample(key, sample_ids, lambda g: torch.rand(
+                (mc_samples,), generator=g, dtype=torch.float64), f.device)
+            cdf = torch.softmax(f.double(), dim=-1).cumsum(dim=-1)
+            labels = torch.searchsorted(cdf, u, right=True)
+            return labels.clamp(max=f.shape[-1] - 1)
+        s, t, v = f.shape
         u = _per_sample(key, sample_ids, lambda g: torch.rand(
-            (mc_samples,), generator=g, dtype=torch.float64), f.device)
-        cdf = torch.softmax(f.double(), dim=-1).cumsum(dim=-1)
-        labels = torch.searchsorted(cdf, u, right=True)
-        return labels.clamp(max=f.shape[-1] - 1)
+            (mc_samples, t), generator=g, dtype=torch.float64), f.device)
+        u = u.transpose(1, 2).contiguous()  # [S, T, M]
+        labels = torch.empty((s, t, mc_samples), dtype=torch.long, device=f.device)
+        step = max(1, CDF_CHUNK_BYTES // (8 * s * v))
+        for t0 in range(0, t, step):
+            cdf = torch.softmax(f[:, t0:t0 + step].double(), dim=-1).cumsum(dim=-1)
+            labels[:, t0:t0 + step] = torch.searchsorted(cdf, u[:, t0:t0 + step].contiguous(),
+                                                         right=True)
+            del cdf
+        return labels.clamp_(max=v - 1).transpose(1, 2)
 
     def sqrt_hessian_mc(self, f, y, draws):
         """``s̃_m = (p − e_ỹm)/√M``: the gradient of ``ℓ(f, ỹ_m)`` at the
-        sampled label ``ỹ_m = draws[:, m]``."""
+        sampled label ``ỹ_m = draws[:, m]``; over a sequence the same at
+        every position, times ``√h``."""
         p = torch.softmax(f, dim=-1)
-        onehot = F.one_hot(draws.long(), f.shape[-1]).to(f.dtype)
-        return (p[:, None, :] - onehot) / draws.shape[1] ** 0.5
+        if f.dim() == 2:
+            onehot = F.one_hot(draws.long(), f.shape[-1]).to(f.dtype)
+            return (p[:, None, :] - onehot) / draws.shape[1] ** 0.5
+        m = draws.shape[1]
+        out = p.unsqueeze(1) if m == 1 else p.unsqueeze(1).repeat(1, m, 1, 1)  # [S, M, T, V]
+        out.scatter_add_(-1, draws.long().unsqueeze(-1),
+                         out.new_full((1,), -1.0).expand(*draws.shape, 1))
+        return out.mul_((self._h(f) / m) ** 0.5)
 
     def hessian_vp(self, f, y, t):
         p = torch.softmax(f, dim=-1)
         hv = p * t - p * (p * t).sum(dim=-1, keepdim=True)
-        return hv / f.shape[0] if self.reduction == "mean" else hv
+        if self.reduction == "sum":
+            return hv
+        hv = hv / f.shape[0]
+        return hv * self._h(f) if f.dim() > 2 else hv
 
 
 class CustomLoss(Loss):

@@ -190,17 +190,18 @@ def _mask_vt(vt, mask):
 def _scale_cols_mixed(vt, scale):
     """Scale the columns of a *mixed* ``Vᵀ`` dict by a scalar or a
     per-sample ``[S]`` vector: a :class:`DenseFactor` on ``δ`` (``z`` is
-    shared across columns), likewise a :class:`TokenFactor`, a
-    :class:`ConvVT` block in f32 and cast back to its dtype, a tensor leaf
-    over its trailing axes."""
-    from vivit_tpu_torch.structured import DenseFactor, TokenFactor
+    shared across columns), likewise a :class:`TokenFactor` and an
+    :class:`EmbeddingFactor`, a :class:`ConvVT` block in f32 and cast back
+    to its dtype, a tensor leaf over its trailing axes."""
+    from dataclasses import replace
+
+    from vivit_tpu_torch.structured import DenseFactor, EmbeddingFactor, TokenFactor
     from vivit_tpu_torch.tapped import ConvVT
 
     out = {}
     for p, leaf in vt.items():
-        if isinstance(leaf, (DenseFactor, TokenFactor)):
-            out[p] = type(leaf)(z=leaf.z,
-                                delta=leaf.delta * _per_sample(scale, leaf.delta.dim()))
+        if isinstance(leaf, (DenseFactor, TokenFactor, EmbeddingFactor)):
+            out[p] = replace(leaf, delta=leaf.delta * _per_sample(scale, leaf.delta.dim()))
         elif isinstance(leaf, ConvVT):
             f = _per_sample(scale, leaf.vt.dim())
             out[p] = ConvVT((leaf.vt.float() * f).to(leaf.vt.dtype), leaf.kernel_shape)
@@ -321,7 +322,7 @@ def _structured_gram_dp(vt, rescale, group, generic_precision, paths=None):
     Column order ``(rank, cf, n_local)`` on both parts; ``paths`` restricts
     the leaves (block-diagonal groups).
     """
-    from vivit_tpu_torch.structured import DenseFactor, TokenFactor
+    from vivit_tpu_torch.structured import DenseFactor, EmbeddingFactor, TokenFactor
     from vivit_tpu_torch.tapped import ConvVT
 
     _, k = _world(group)
@@ -339,7 +340,7 @@ def _structured_gram_dp(vt, rescale, group, generic_precision, paths=None):
             gram = g if gram is None else gram + g
         elif isinstance(leaf, ConvVT):
             generic.append(leaf._flat() * rescale)
-        elif isinstance(leaf, TokenFactor):
+        elif isinstance(leaf, (TokenFactor, EmbeddingFactor)):
             generic.append(leaf.expand().reshape(leaf.num_cols, -1) * rescale)
         else:
             generic.append(leaf.reshape(leaf.shape[0] * leaf.shape[1], -1) * rescale)

@@ -14,12 +14,21 @@ The factored leaves of a mixed ``Vᵀ`` dict, beside plain tensors
   dimensions: the column is ``Σ_p δ_{c,n,p} ⊗ z_{n,p}`` over the ``T``
   positions, kept as ``(z, δ)``; its Gram block either expands the columns
   in bounded chunks or takes the ``T×T`` form, whichever costs fewer
-  operations at the shapes it sees (:meth:`TokenFactor.gram`).
+  operations at the shapes it sees (:meth:`TokenFactor.gram`);
+* :class:`RoutedFactor`, a Linear weight fed rows gathered from the
+  flattened batch (a mixture of experts' dispatch): each sample's rows,
+  however many, are its positions, padded with zero rows to the longest
+  sample's (:func:`routed_factor`), a :class:`TokenFactor` otherwise;
+* :class:`EmbeddingFactor`, an ``nn.Embedding`` table: the column is
+  ``Σ_p e_{id_{n,p}} ⊗ δ_{c,n,p}``, kept as ``(ids, δ)`` and materialized
+  a bounded chunk of table rows at a time for its Gram.
 
 Gram matrices use the flat column index ``c·S + n`` (factor-major).  The
-token blocks of one Gram are summed inside one span, ``gram.token_blocks``
-(:mod:`vivit_tpu_torch.utils.trace`); :data:`TOKEN_BLOCKS` counts the
-token blocks the tapped engine forms.
+token blocks of one Gram are summed inside one span, ``gram.token_blocks``,
+the routed blocks inside ``gram.routed_blocks`` and the embedding blocks
+inside ``gram.embedding`` (:mod:`vivit_tpu_torch.utils.trace`);
+:data:`TOKEN_BLOCKS` and :data:`ROUTED_BLOCKS` count the token and routed
+blocks the tapped engine forms.
 """
 
 from dataclasses import dataclass
@@ -96,8 +105,10 @@ class TokenFactor:
       :func:`~vivit_tpu_torch.kernels.token_expand.token_expand_cuda`
       (three TF32 passes on the tensor cores, f32-faithful; launches
       counted in its module's ``LAUNCHES``), elsewhere by :meth:`expand`.  Each
-      chunk's product runs in blocks of at most ``2^14`` of its columns
-      (``precision._K_BLOCK``), each block's f32 result added: an H100's
+      chunk's product runs in blocks of ``2^11`` of its columns, one
+      batched product (``precision._BATCHED_K``;
+      :func:`~vivit_tpu_torch.precision.gram_blocked`), each block's f32
+      result added: an H100's
       bf16 GEMM with an f32 output sums a long contraction with an error
       that grows with its length (``PERF.md``: 2.6e-5 at 16,384, 4.9e-4 at
       196,608, 1.6e-3 at 589,824 against the exact sum);
@@ -156,7 +167,7 @@ class TokenFactor:
         ``precision`` is the operand dtype of the expanded chunks
         (:func:`vivit_tpu_torch.precision.gram`)."""
         from vivit_tpu_torch.kernels.token_expand import token_expand_cuda
-        from vivit_tpu_torch.precision import _K_BLOCK, gram
+        from vivit_tpu_torch.precision import gram_blocked
 
         expand_flops, tt_flops = self._flops()
         if tt_flops < expand_flops:
@@ -173,9 +184,7 @@ class TokenFactor:
                 flat = self.expand(o0, o1, i0, i1).reshape(n, -1)
             if precision is not None:
                 flat = flat.to(precision)
-            for k0 in range(0, flat.shape[1], _K_BLOCK):
-                g = gram(flat[:, k0:k0 + _K_BLOCK], precision)
-                out = g if out is None else out.add_(g)
+            out = gram_blocked(flat, precision, out)
         return out
 
     def _tt_gram(self) -> torch.Tensor:
@@ -197,6 +206,107 @@ class TokenFactor:
         """``Vᵀ @ m`` for ``[K, out, in]`` → ``[CF·S, K]``."""
         w = torch.einsum("npi,koi->knpo", self.z, mat)
         r = torch.einsum("knpo,cnpo->cnk", w, self.delta)
+        return r.reshape(self.num_cols, r.shape[-1])
+
+
+# routed blocks formed by the tapped engine since the last reset
+# (``ROUTED_BLOCKS = 0``)
+ROUTED_BLOCKS = 0
+
+
+class RoutedFactor(TokenFactor):
+    """A :class:`TokenFactor` whose positions are the rows a sample routed
+    to the layer, padded with zero rows (``z`` and ``δ`` zero) to the
+    longest sample's count: a zero row adds nothing to a column, so the
+    block is that of the ragged segments.  Built by :func:`routed_factor`."""
+
+
+def _segments(sample: torch.Tensor, s: int):
+    """``(order, slot, length)``: the rows sorted by sample (stable), each
+    row's slot within its sample's segment, and the longest segment (at
+    least 1; one host read)."""
+    counts = torch.bincount(sample, minlength=s)
+    order = torch.argsort(sample, stable=True)
+    starts = torch.cumsum(counts, 0) - counts
+    slot = torch.arange(sample.numel(), device=sample.device) - starts[sample[order]]
+    return order, slot, max(1, int(counts.max())) if sample.numel() else 1
+
+
+def routed_factor(z: torch.Tensor, delta: torch.Tensor, sample: torch.Tensor, s: int,
+                  segments=None) -> RoutedFactor:
+    """The block of a Linear weight whose input rows ``z [n, in]`` belong
+    to the samples ``sample [n]`` (ids in ``0..s−1``), with cotangents
+    ``δ [CF, n, out]``: each sample's rows gathered into its segment of
+    ``[S, L, ·]``, ``L`` the longest.  ``segments`` (from
+    :func:`_segments`) may be shared by the layers that see the same
+    rows."""
+    order, slot, length = segments or _segments(sample, s)
+    owner = sample[order]
+    zp = z.new_zeros((s, length, z.shape[-1]))
+    zp[owner, slot] = z[order]
+    dp = delta.new_zeros((delta.shape[0], s, length, delta.shape[-1]))
+    dp[:, owner, slot] = delta[:, order]
+    return RoutedFactor(z=zp, delta=dp)
+
+
+@dataclass
+class EmbeddingFactor:
+    """Factored ``Vᵀ`` block of an ``nn.Embedding`` table of
+    ``num_embeddings`` rows.
+
+    ``z``: the token ids ``[S, T]``; ``delta``: scaled output cotangents
+    ``[CF, S, T, dim]``.  Column ``(c, n)`` adds ``δ_{c,n,p}`` into row
+    ``id_{n,p}`` of the table, for every position ``p``.  Its Gram
+    (:meth:`gram`) materializes the columns over a chunk of table rows at a
+    time (at most :data:`TOKEN_CHUNK_BYTES` of f32), rounded to the Gram's
+    operand dtype, their products in K-blocks as a token block's.
+    """
+
+    z: torch.Tensor
+    delta: torch.Tensor
+    num_embeddings: int
+
+    @property
+    def num_cols(self) -> int:
+        cf, s = self.delta.shape[:2]
+        return cf * s
+
+    def expand(self, r0=0, r1=None) -> torch.Tensor:
+        """Columns ``[CF, S, r1-r0, dim]`` of the table rows ``r0:r1``."""
+        cf, s, t, d = self.delta.shape
+        r1 = self.num_embeddings if r1 is None else r1
+        col = torch.arange(cf * s, device=self.z.device).view(cf, s, 1).expand(cf, s, t)
+        row = self.z.unsqueeze(0).expand(cf, s, t)
+        keep = (row >= r0) & (row < r1)
+        out = self.delta.new_zeros((cf * s, r1 - r0, d))
+        out.index_put_((col[keep], row[keep] - r0), self.delta[keep], accumulate=True)
+        return out.reshape(cf, s, r1 - r0, d)
+
+    def gram(self, precision=None, out=None) -> torch.Tensor:
+        """``[CF·S, CF·S]`` Gram block, added into ``out`` when given."""
+        from vivit_tpu_torch.precision import gram_blocked
+
+        n, d = self.num_cols, self.delta.shape[-1]
+        rows = max(1, TOKEN_CHUNK_BYTES // (4 * n * d))
+        for r0 in range(0, self.num_embeddings, rows):
+            flat = self.expand(r0, min(r0 + rows, self.num_embeddings)).reshape(n, -1)
+            if precision is not None:
+                flat = flat.to(precision)
+            out = gram_blocked(flat, precision, out)
+        return out
+
+    def v_mat_prod(self, gram_vecs: torch.Tensor) -> torch.Tensor:
+        """``V @ ẽ`` for ``[K, CF·S]`` → ``[K, num_embeddings, dim]``."""
+        cf, s, t, d = self.delta.shape
+        k = gram_vecs.shape[0]
+        w = torch.einsum("kcn,cnpd->knpd", gram_vecs.reshape(k, cf, s), self.delta)
+        out = w.new_zeros((k, self.num_embeddings, d))
+        return out.index_add_(1, self.z.reshape(-1), w.reshape(k, s * t, d))
+
+    def vt_mat_prod(self, mat: torch.Tensor) -> torch.Tensor:
+        """``Vᵀ @ m`` for ``[K, num_embeddings, dim]`` → ``[CF·S, K]``."""
+        rows = mat[:, self.z]  # [K, S, T, dim]
+        r = torch.einsum("knpd,cnpd->cnk", rows, self.delta)
         return r.reshape(self.num_cols, r.shape[-1])
 
 
@@ -298,9 +408,11 @@ def gram_matrix_mixed(
     ``generic_precision`` (an operand dtype from
     :data:`vivit_tpu_torch.precision._PRECISIONS`) applies to the
     materialized blocks (conv weights, biases) and to the expanded chunks
-    of the token blocks; the :class:`DenseFactor` blocks run in full f32.
-    The token blocks are summed first, into one Gram, inside one span
-    ``gram.token_blocks``.
+    of the token, routed and embedding blocks; the :class:`DenseFactor`
+    blocks run in full f32.  The token blocks are summed first, into one
+    Gram, inside one span ``gram.token_blocks``, then the routed blocks
+    inside ``gram.routed_blocks`` and the embedding blocks inside
+    ``gram.embedding``.
     """
     from vivit_tpu_torch.precision import gram
     from vivit_tpu_torch.tapped import ConvVT
@@ -308,14 +420,17 @@ def gram_matrix_mixed(
     if paths is None:
         paths = list(vt_mixed.keys())
     total = None
-    tokens = [vt_mixed[p] for p in paths if isinstance(vt_mixed[p], TokenFactor)]
-    if tokens:
-        with trace.span("gram.token_blocks", tokens[0].delta):
-            for leaf in tokens:
-                total = leaf.gram(generic_precision, out=total)
+    for kind, span in ((TokenFactor, "gram.token_blocks"),
+                       (RoutedFactor, "gram.routed_blocks"),
+                       (EmbeddingFactor, "gram.embedding")):
+        leaves = [vt_mixed[p] for p in paths if type(vt_mixed[p]) is kind]
+        if leaves:
+            with trace.span(span, leaves[0].delta):
+                for leaf in leaves:
+                    total = leaf.gram(generic_precision, out=total)
     for p in paths:
         leaf = vt_mixed[p]
-        if isinstance(leaf, TokenFactor):
+        if isinstance(leaf, (TokenFactor, EmbeddingFactor)):
             continue
         if isinstance(leaf, DenseFactor):
             g = leaf.gram()
@@ -342,7 +457,7 @@ def v_mat_prod_mixed(
     out = []
     for p in paths:
         leaf = vt_mixed[p]
-        if isinstance(leaf, (DenseFactor, TokenFactor, ConvVT)):
+        if isinstance(leaf, (DenseFactor, TokenFactor, EmbeddingFactor, ConvVT)):
             out.append(leaf.v_mat_prod(gv))
         else:
             cf, s = leaf.shape[:2]
@@ -362,7 +477,7 @@ def vt_mat_prod_mixed(
     total = None
     for p, m in zip(paths, mat_leaves):
         leaf = vt_mixed[p]
-        if isinstance(leaf, (DenseFactor, TokenFactor, ConvVT)):
+        if isinstance(leaf, (DenseFactor, TokenFactor, EmbeddingFactor, ConvVT)):
             r = leaf.vt_mat_prod(m)
         else:
             cf, s = leaf.shape[:2]

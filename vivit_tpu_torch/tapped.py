@@ -2,8 +2,9 @@
 (counterpart of ``vivit_tpu/tapped.py``).
 
 1. **Taps.**  A forward hook on every layer of the table below adds a zero
-   tensor that requires grad (the tap) to the layer's output and records
-   the layer's input ``z``.  The gradient of the model output w.r.t. the
+   that requires grad, broadcast to the output's shape without memory of
+   its own (the tap), to the layer's output and records the layer's input
+   ``z``.  The gradient of the model output w.r.t. the
    taps, seeded with one factor column ``s_{·,c}``, is the per-sample
    output cotangent ``δ_c [S, *out]`` of every layer at once: the taps carry
    the batch axis, so nothing is summed over samples.  The backward runs
@@ -14,14 +15,22 @@
 2. **Layer-local reconstruction** of each parameter's ``Vᵀ`` block from
    ``(z, δ)``, the fast-path table:
 
-   * Linear weight, 2-D input → :class:`~vivit_tpu_torch.structured.DenseFactor`
-     ``(z, δ)``, never materialized;
-   * Linear weight, input with extra (token) dimensions →
+   * Linear weight, 2-D input of one row a sample →
+     :class:`~vivit_tpu_torch.structured.DenseFactor` ``(z, δ)``, never
+     materialized;
+   * Linear weight, input with extra (token) dimensions, or the batch
+     flattened to rows (``[S·R, in]``, below) →
      :class:`~vivit_tpu_torch.structured.TokenFactor` ``(z, δ)`` over the
      flattened positions, never materialized (its Gram expands it in
      bounded chunks); :data:`~vivit_tpu_torch.structured.TOKEN_BLOCKS`
      counts them;
-   * Linear bias → ``δ`` (summed over extra dimensions);
+   * Linear weight fed rows gathered from the flattened batch (a mixture
+     of experts' dispatch) → :class:`~vivit_tpu_torch.structured.RoutedFactor`,
+     each sample's rows its positions (below);
+     :data:`~vivit_tpu_torch.structured.ROUTED_BLOCKS` counts them and
+     :data:`ROUTED_ROWS` their rows, once for the layers that share them;
+   * Linear bias → ``δ`` (summed over extra dimensions, or over a sample's
+     rows);
    * Conv weight → :class:`ConvVT`, one batched patch×cotangent product,
      patches from ``F.unfold`` in channel-major ``(I, kh, kw)`` order;
    * Conv bias → ``δ`` summed over output positions;
@@ -29,6 +38,12 @@
      ``Σ_p δ_p``, summed over the dimensions between the batch and the
      normalized ones; ``x̂`` is the normalized input, from the hooked input
      and the module's own ``eps``;
+   * RMSNorm with a weight: ``Σ_p δ_p ∘ x̂_p``, ``x̂ = x / √(mean x² + eps)``
+     over the normalized dimensions;
+   * Embedding (no ``padding_idx``, ``max_norm`` or gradient scaling) →
+     :class:`~vivit_tpu_torch.structured.EmbeddingFactor` ``(ids, δ)``,
+     ``δ`` added into the rows of the sample's ids when its Gram
+     materializes it;
    * a parameter broadcast over the batch (a class token, a learned
      position embedding): one of shape ``[1, ...]`` and rank 2 or more,
      held by a module outside the table.  The forward runs with a
@@ -41,8 +56,24 @@
      another axis.  Any other use sends the parameter to the generic
      engine, and the forward runs again without its copy.
 
+**Rows placed by sample.**  A 2-D Linear input is a ``DenseFactor`` only
+where its rows are the samples.  The forward runs under a
+``TorchFunctionMode`` that follows which sample each row of a 2-D tensor
+comes from: a batch tensor ``[S, ..., d]`` flattened to ``[S·R, d]`` (row
+``r`` of sample ``r // R``); its rows taken by a ``LongTensor`` or a mask
+(``x[idx]``, ``index_select``) or sliced; and what keeps the rows
+(``linear``, element-wise activations, element-wise products and sums of
+tensors with the same rows or broadcast over them, casts and copies).  A
+2-D Linear input it placed becomes a ``TokenFactor`` (the flattened batch
+in its own order) or a ``RoutedFactor`` (rows gathered); the span
+``vtransform.routing`` holds the gathering into segments.  An input whose
+rows came through any other operation on placed rows, or that has another
+leading size than the batch's, has rows it cannot place: its layer goes to
+the generic engine.
+
 Every other parameter (other layer types, grouped or string-padded convs,
-layers applied more than once) goes to the generic engine
+layers applied more than once, Linear inputs whose rows are not placed)
+goes to the generic engine
 (:func:`vivit_tpu_torch.ggn.ggn_sqrt_vt`) over those parameters alone: the
 result is exact either way, the table is a fast path.  :data:`GENERIC_PARAMS`
 counts the parameters sent there.
@@ -50,10 +81,11 @@ counts the parameters sent there.
 The steps are spans (:mod:`vivit_tpu_torch.utils.trace`):
 ``vtransform.forward`` (the tapped forward), ``vtransform.loss_hessian_sqrt``
 (the loss factors), ``vtransform.backward`` (the ``CF'`` backwards) and
-``vtransform.reconstruct`` (step 2 and the generic engine).
+``vtransform.reconstruct`` (step 2 and the generic engine; inside it
+``vtransform.routing``).
 """
 
-from contextlib import nullcontext
+import weakref
 from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
@@ -70,6 +102,9 @@ from vivit_tpu_torch.utils.checks import check_subsampling_unique
 # reset (``GENERIC_PARAMS = 0``); a replay of captured CUDA graphs makes no
 # Python call and adds nothing
 GENERIC_PARAMS = 0
+# rows of routed blocks placed by sample since the last reset
+# (``ROUTED_ROWS = 0``), once for the layers that see the same rows
+ROUTED_ROWS = 0
 
 # the operations a broadcast parameter's per-sample copy may enter, by name:
 # element-wise with a batch tensor, ``expand`` over the batch, ``cat``
@@ -77,6 +112,15 @@ _ELEMENTWISE = frozenset({
     "add", "add_", "__add__", "__radd__", "__iadd__", "sub", "sub_", "__sub__",
     "__rsub__", "__isub__", "mul", "mul_", "__mul__", "__rmul__", "__imul__"})
 _CAT = frozenset({"cat", "concat", "concatenate"})
+# the operations whose result keeps the rows of its 2-D operands (the row
+# rule of the module docstring); ``linear`` keeps its input's
+_ROWWISE = _ELEMENTWISE | frozenset({
+    "div", "div_", "__truediv__", "__rtruediv__", "__itruediv__", "neg", "__neg__",
+    "silu", "gelu", "relu", "relu_", "sigmoid", "tanh", "exp", "abs", "sqrt", "rsqrt",
+    "square", "pow", "__pow__", "float", "double", "half", "bfloat16", "to", "type",
+    "contiguous", "clone", "detach", "zeros_like", "ones_like", "empty_like",
+    "requires_grad_", "dropout"})
+_RESHAPE = frozenset({"view", "reshape", "flatten"})
 
 
 class ConvVT:
@@ -133,22 +177,32 @@ def _conv_supported(m: nn.Conv2d) -> bool:
             and not isinstance(m.padding, str))
 
 
-def _norm_supported(m: nn.LayerNorm) -> bool:
-    """Whether a LayerNorm layer is inside the fast path (with a weight)."""
-    return m.weight is not None
+_NORMS = (nn.LayerNorm, nn.RMSNorm)
+
+
+def _embedding_supported(m: nn.Embedding) -> bool:
+    """Whether an Embedding is inside the fast path (no padding row, no
+    renormalization, no gradient scaling, dense gradients)."""
+    return (m.padding_idx is None and m.max_norm is None and not m.scale_grad_by_freq
+            and not m.sparse)
 
 
 def _fast_layers(module: nn.Module) -> Dict[str, nn.Module]:
     """The layers inside the fast-path table, by module name."""
     return {name: m for name, m in module.named_modules()
             if type(m) is nn.Linear or (type(m) is nn.Conv2d and _conv_supported(m))
-            or (type(m) is nn.LayerNorm and _norm_supported(m))}
+            or (type(m) in _NORMS and m.weight is not None)
+            or (type(m) is nn.Embedding and _embedding_supported(m))}
 
 
-def _normalized(x: torch.Tensor, m: nn.LayerNorm) -> torch.Tensor:
-    """LayerNorm's ``x̂ = (x − mean) / √(var + eps)`` over its normalized
-    dimensions."""
+def _normalized(x: torch.Tensor, m: nn.Module) -> torch.Tensor:
+    """The normalized input over the normalized dimensions: LayerNorm's
+    ``x̂ = (x − mean) / √(var + eps)``, RMSNorm's ``x / √(mean x² + eps)``
+    (``eps`` None: the dtype's machine epsilon, as ``nn.RMSNorm``)."""
     dims = tuple(range(-len(m.normalized_shape), 0))
+    if type(m) is nn.RMSNorm:
+        eps = m.eps if m.eps is not None else torch.finfo(x.dtype).eps
+        return x * torch.rsqrt(x.pow(2).mean(dim=dims, keepdim=True) + eps)
     mean = x.mean(dim=dims, keepdim=True)
     var = x.var(dim=dims, unbiased=False, keepdim=True)
     return (x - mean) * torch.rsqrt(var + m.eps)
@@ -175,15 +229,39 @@ class _Misused(Exception):
     """A per-sample copy entered an operation outside the rule."""
 
 
-class _BroadcastCheck(TorchFunctionMode):
-    """Watches the per-sample copies ``{name: [S, ...]}`` through a forward:
-    the first operation outside the rule of the module docstring records
-    the copies it takes in ``bad`` and stops the forward (:class:`_Misused`)
-    before it runs."""
+class Rows:
+    """The samples of a 2-D tensor's rows: ``sample [n]``, a LongTensor on
+    the tensor's device; ``per`` ``R`` where the rows are the flattened
+    batch ``[S·R, d]`` in its own order (row ``r`` of sample ``r // R``),
+    else None (gathered)."""
+
+    __slots__ = ("sample", "per")
+
+    def __init__(self, sample, per=None):
+        self.sample, self.per = sample, per
+
+
+_FREE = object()  # a tensor the row rule has not seen
+
+
+class _Watch(TorchFunctionMode):
+    """Watches a tapped forward (module docstring).
+
+    * The per-sample copies ``{name: [S, ...]}``: the first operation
+      outside the broadcast rule records the copies it takes in ``bad`` and
+      stops the forward (:class:`_Misused`) before it runs.
+    * The rows of 2-D tensors (the row rule): :meth:`rows_of` gives the
+      :class:`Rows` of a tensor that came from the flattened batch, None
+      for one whose rows came through an operation outside the rule, and
+      ``_FREE`` for any other.
+    """
 
     def __init__(self, copies: Dict[str, torch.Tensor], s: int):
         super().__init__()
         self.copies, self.s, self.bad = copies, s, set()
+        # by id: a weak reference to the tensor (an id outlives its tensor,
+        # and a strong one would keep every intermediate alive) and its rows
+        self.placed: Dict[int, Tuple[weakref.ref, Optional[Rows]]] = {}
 
     def _batch(self, t, ndim) -> bool:
         return isinstance(t, torch.Tensor) and t.dim() == ndim and t.shape[0] == self.s
@@ -206,23 +284,93 @@ class _BroadcastCheck(TorchFunctionMode):
             return dim % ndim != 0 and all(self._batch(t, ndim) for t in seq)
         return False
 
+    def rows_of(self, t):
+        hit = self.placed.get(id(t))
+        return hit[1] if hit is not None and hit[0]() is t else _FREE
+
+    def _indexed(self, rows: Rows, index) -> Optional[Rows]:
+        """The rows of ``x[index]`` (rows, slices or masks of them)."""
+        if isinstance(index, tuple):
+            rest = index[1:]
+            if not index or not all(i is Ellipsis or (isinstance(i, slice) and i == slice(None))
+                                    for i in rest):
+                return None
+            index = index[0]
+        if isinstance(index, slice) or (
+                isinstance(index, torch.Tensor) and index.dim() == 1
+                and (index.dtype == torch.bool or not index.is_floating_point())):
+            return Rows(rows.sample[index])
+        return None
+
+    def _rows(self, name, args, kwargs, out) -> Optional[Rows]:
+        """The rows of ``out`` by the row rule, None where it does not hold."""
+        x = args[0] if args else None
+        known = self.rows_of(x) if isinstance(x, torch.Tensor) else _FREE
+        if name in ("__getitem__", "index_select") and isinstance(known, Rows):
+            if name == "__getitem__":
+                return self._indexed(known, args[1])
+            dim = args[1] if len(args) > 1 else kwargs.get("dim")
+            return Rows(known.sample.index_select(0, args[2])) if dim == 0 else None
+        if name in _RESHAPE or name == "linear":
+            ok = isinstance(known, Rows) and out.shape[0] == x.shape[0]
+            return known if ok and (name == "linear" or out.shape == x.shape) else None
+        if name not in _ROWWISE:
+            return None
+        rows = None
+        for t in _flat_args(args, kwargs):
+            if not isinstance(t, torch.Tensor):
+                continue
+            r = self.rows_of(t)
+            if r is _FREE and (t.dim() < out.dim() or t.shape[0] == 1 or t.stride(0) == 0):
+                continue  # broadcast over the rows
+            if not isinstance(r, Rows) or (rows is not None and r is not rows):
+                return None
+            rows = r
+        return rows if rows is not None and out.shape[0] == rows.sample.numel() else None
+
+    def _place(self, func, args, kwargs, out):
+        name = getattr(func, "__name__", "")
+        x = args[0] if args else None
+        if (name in _RESHAPE and isinstance(x, torch.Tensor) and isinstance(out, torch.Tensor)
+                and x.dim() >= 3 and x.shape[0] == self.s and out.dim() == 2
+                and out.shape[1] == x.shape[-1] and self.rows_of(x) is _FREE):
+            per = out.shape[0] // self.s
+            sample = torch.arange(self.s, device=x.device).repeat_interleave(per)
+            self.placed[id(out)] = (weakref.ref(out), Rows(sample, per))
+            return
+        if all(self.rows_of(t) is _FREE for t in _flat_args(args, kwargs)
+               if isinstance(t, torch.Tensor)):
+            return
+        outs = out if isinstance(out, (tuple, list)) else (out,)
+        for o in outs:
+            if isinstance(o, torch.Tensor) and o.dim() == 2:
+                rows = self._rows(name, args, kwargs, o) if o is out else None
+                self.placed[id(o)] = (weakref.ref(o), rows)
+
     def __torch_function__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
-        ids = {id(a) for a in _flat_args(args, kwargs)}
-        hit = [n for n, c in self.copies.items() if id(c) in ids]
-        if hit and not self._allowed(func, args, kwargs):
-            self.bad.update(hit)
-            raise _Misused
-        return func(*args, **kwargs)
+        if self.copies:
+            ids = {id(a) for a in _flat_args(args, kwargs)}
+            hit = [n for n, c in self.copies.items() if id(c) in ids]
+            if hit and not self._allowed(func, args, kwargs):
+                self.bad.update(hit)
+                raise _Misused
+        out = func(*args, **kwargs)
+        self._place(func, args, kwargs, out)
+        return out
 
 
 def _tapped_forward(module, Xs, layers, copies):
     """The forward with a tap on every table layer and ``copies`` in place
-    of their parameters: ``(f, zs, taps, repeated, bad)``; ``bad`` names the
-    copies used outside the rule (the forward is then to run again)."""
+    of their parameters: ``(f, zs, taps, rows, repeated, bad)``; ``rows``
+    maps each Linear with a 2-D input to its rows (:meth:`_Watch.rows_of`),
+    ``bad`` names the copies used outside the rule (the forward is then to
+    run again)."""
     zs: Dict[str, torch.Tensor] = {}
     taps: Dict[str, torch.Tensor] = {}
+    rows: Dict[str, Any] = {}
     repeated = set()
+    watch = _Watch(copies, Xs.shape[0])
 
     def hook_for(name, m):
         def hook(_, inputs, out):
@@ -231,17 +379,19 @@ def _tapped_forward(module, Xs, layers, copies):
                 # only, so the layer goes to the generic engine
                 repeated.add(name)
                 return out
-            x = inputs[0].detach()
-            zs[name] = _normalized(x, m) if type(m) is nn.LayerNorm else x
-            taps[name] = torch.zeros_like(out, requires_grad=True)
+            x = inputs[0]
+            if type(m) is nn.Linear and x.dim() == 2:
+                rows[name] = watch.rows_of(x)
+            zs[name] = x.detach()  # a norm's x̂ is formed after the backward
+            zero = torch.zeros((), dtype=out.dtype, device=out.device, requires_grad=True)
+            taps[name] = zero.expand(out.shape)
             return out + taps[name]
         return hook
 
     handles = [m.register_forward_hook(hook_for(name, m)) for name, m in layers.items()]
-    check = _BroadcastCheck(copies, Xs.shape[0]) if copies else None
     f = None
     try:
-        with torch.enable_grad(), check or nullcontext():
+        with torch.enable_grad(), watch:
             if copies:
                 from torch.func import functional_call
 
@@ -253,7 +403,39 @@ def _tapped_forward(module, Xs, layers, copies):
     finally:
         for h in handles:
             h.remove()
-    return f, zs, taps, repeated, set() if check is None else check.bad
+    return f, zs, taps, rows, repeated, watch.bad
+
+
+def _linear_blocks(z, d, rows, s, segments):
+    """``(weight block, bias block)`` of a Linear with input ``z`` and
+    cotangents ``d [CF', n, ..., out]`` (module docstring's table), or None
+    where the input's rows are not placed or its leading size is not the
+    batch's: ``rows`` from :meth:`_Watch.rows_of` (``_FREE`` for an input
+    with extra dimensions); ``segments`` caches the routed rows' segments
+    by their :class:`Rows`."""
+    global ROUTED_ROWS
+    from vivit_tpu_torch import structured
+
+    cf = d.shape[0]
+    if rows is None or (rows is _FREE and z.shape[0] != s):
+        return None
+    if z.dim() == 2 and (rows is _FREE or rows.per == 1):
+        return structured.DenseFactor(z=z, delta=d), d
+    if rows is _FREE or rows.per is not None:
+        # token dimensions, or the flattened batch: the positions kept factored
+        zf = z.reshape(s, -1, z.shape[-1])
+        df = d.reshape(cf, s, -1, d.shape[-1])
+        structured.TOKEN_BLOCKS += 1
+        return structured.TokenFactor(z=zf, delta=df), df.sum(dim=2)
+    # rows gathered from the flattened batch: each sample's rows its segment
+    with trace.span("vtransform.routing", z):
+        if id(rows) not in segments:
+            segments[id(rows)] = (rows, structured._segments(rows.sample, s))
+            ROUTED_ROWS += rows.sample.numel()
+        block = structured.routed_factor(z, d, rows.sample, s, segments[id(rows)][1])
+        bias = d.new_zeros((cf, s, d.shape[-1])).index_add_(1, rows.sample, d)
+    structured.ROUTED_BLOCKS += 1
+    return block, bias
 
 
 def tapped_ggn_sqrt_vt(
@@ -287,7 +469,6 @@ def tapped_ggn_sqrt_vt(
     global GENERIC_PARAMS
     from vivit_tpu_torch import structured
     from vivit_tpu_torch.engines import forward_fn, module_params
-    from vivit_tpu_torch.structured import DenseFactor, TokenFactor
 
     check_subsampling_unique(subsampling)
     N = batch_size if batch_size is not None else X.shape[0]
@@ -302,7 +483,7 @@ def tapped_ggn_sqrt_vt(
         while True:
             copies = {n: params[n].expand(s, *params[n].shape[1:]).clone().requires_grad_()
                       for n in broadcast}
-            f, zs, taps, repeated, bad = _tapped_forward(module, Xs, layers, copies)
+            f, zs, taps, rows, repeated, bad = _tapped_forward(module, Xs, layers, copies)
             if not bad:
                 break
             broadcast = [n for n in broadcast if n not in bad]
@@ -316,12 +497,13 @@ def tapped_ggn_sqrt_vt(
     names = [n for n in taps if n not in repeated]
     wrt = [taps[n] for n in names] + list(copies.values())
     keys = names + list(copies)
-    norms = {n for n in names if type(layers[n]) is nn.LayerNorm}
-    # a token block's columns go into one buffer as they come: stacked
-    # later, their lists and the stack would be held at once, and the
-    # allocator's cache fragments (ViT-S/16 at N=128 reserved 83.9 GB so,
-    # 70.7 GB with the buffers); every other tap's columns are stacked
-    tokens = {n for n in names if type(layers[n]) is nn.Linear and zs[n].dim() > 2}
+    norms = {n for n in names if type(layers[n]) in _NORMS}
+    # a token or embedding block's columns go into one buffer as they come:
+    # stacked later, their lists and the stack would be held at once, and
+    # the allocator's cache fragments (ViT-S/16 at N=128 reserved 83.9 GB
+    # so, 70.7 GB with the buffers); every other tap's columns are stacked
+    tokens = {n for n in names if (type(layers[n]) is nn.Linear and zs[n].dim() > 2)
+              or type(layers[n]) is nn.Embedding}
     columns: Dict[str, list] = {k: [] for k in keys}
     buffers: Dict[str, torch.Tensor] = {}
     with trace.span("vtransform.backward", X):
@@ -332,18 +514,26 @@ def tapped_ggn_sqrt_vt(
                 if g is None:
                     g = torch.zeros_like(ref)
                 if k in norms:
-                    # LayerNorm: the sums over the positions, at once
+                    # a norm: the sums over the positions, at once
+                    if i == 0:
+                        zs[k] = _normalized(zs[k], layers[k])
                     w, b = g * zs[k], g
                     dims = tuple(range(1, g.dim() - len(layers[k].normalized_shape)))
                     if dims:
                         w, b = w.sum(dim=dims), b.sum(dim=dims)
                     g = (w, b)
                 elif k in tokens:
+                    if cf == 1:
+                        buffers[k] = g.unsqueeze(0).contiguous()
+                        continue
                     if k not in buffers:
                         buffers[k] = g.new_empty((cf, *g.shape))
                     buffers[k][i].copy_(g)
                     continue
                 columns[k].append(g)
+            del grads
+    # the logits and their factors are let go before the blocks are built
+    del f, factors, cots
 
     def stacked(k):
         """``[CF', S, ...]``: the columns of ``k`` stacked, then let go."""
@@ -351,30 +541,27 @@ def tapped_ggn_sqrt_vt(
 
     with trace.span("vtransform.reconstruct", X):
         mixed: Dict[str, Any] = {}
+        segments: Dict[int, Any] = {}  # the routed rows' segments, by their Rows
         for name in names:
             m = layers[name]
             prefix = f"{name}." if name else ""
             if name in norms:
                 w, b = zip(*columns.pop(name))
                 mixed[prefix + "weight"] = torch.stack(w)
-                if m.bias is not None:
+                if getattr(m, "bias", None) is not None:
                     mixed[prefix + "bias"] = torch.stack(b)
                 continue
-            z = zs[name]
+            z = zs.pop(name)
             d = buffers.pop(name) if name in tokens else stacked(name)  # [CF', S, *out]
-            if type(m) is nn.Linear:
-                if z.dim() == 2:
-                    mixed[prefix + "weight"] = DenseFactor(z=z, delta=d)
+            if type(m) is nn.Embedding:
+                mixed[prefix + "weight"] = structured.EmbeddingFactor(
+                    z=z, delta=d, num_embeddings=m.num_embeddings)
+            elif type(m) is nn.Linear:
+                blocks = _linear_blocks(z, d, rows.get(name, _FREE), s, segments)
+                if blocks is not None:  # else: rows not placed, the generic engine
+                    mixed[prefix + "weight"], bias = blocks
                     if m.bias is not None:
-                        mixed[prefix + "bias"] = d
-                else:
-                    # extra input dimensions: the positions flattened, kept factored
-                    zf = z.reshape(s, -1, z.shape[-1])
-                    df = d.reshape(cf, s, -1, d.shape[-1])
-                    mixed[prefix + "weight"] = TokenFactor(z=zf, delta=df)
-                    structured.TOKEN_BLOCKS += 1
-                    if m.bias is not None:
-                        mixed[prefix + "bias"] = df.sum(dim=2)
+                        mixed[prefix + "bias"] = bias
             else:
                 patches = F.unfold(z, m.kernel_size, dilation=m.dilation,
                                    padding=m.padding, stride=m.stride)  # [S, K, L]

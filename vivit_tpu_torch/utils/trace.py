@@ -3,9 +3,11 @@
 The port's counterpart of the JAX package's ``jax.named_scope`` names.  A
 span is a ``with span(name, like):`` block around one stage; the stages are
 the entry (``eigvalsh_structured``), the V-transform (``vtransform`` and its
-``.forward``, ``.loss_hessian_sqrt``, ``.backward``, ``.reconstruct``), the
-Gram (``gram``, and inside it ``gram.token_blocks`` around the token blocks'
-sum, one a Gram), the eigensolve (``eigensolve``, ``eigh_dc.basis``,
+``.forward``, ``.loss_hessian_sqrt``, ``.backward``, ``.reconstruct``, and
+inside the last ``vtransform.routing`` around each routed block's
+gathering), the Gram (``gram``, and inside it ``gram.token_blocks``,
+``gram.routed_blocks`` and ``gram.embedding`` around the token, routed and
+embedding blocks' sums, one each a Gram), the eigensolve (``eigensolve``, ``eigh_dc.basis``,
 ``eigh_dc.polish``, ``eigh_dc.guard``, ``eigh_dc.rerun``) and the small
 dense solves (``leaves``).
 
@@ -40,8 +42,10 @@ Operator's use::
 
 Beside the spans, the port keeps counters as module attributes, each
 reset by assignment: ``eigdc.TRIPS`` (guard trips), ``tapped.GENERIC_PARAMS``
-(parameters sent to the generic engine), ``structured.TOKEN_BLOCKS`` (token
-blocks formed), ``precision.THREE_PASS`` and ``THREE_PASS_DECLINED``.  A
+(parameters sent to the generic engine), ``tapped.ROUTED_ROWS`` (rows of
+routed blocks placed by sample), ``structured.TOKEN_BLOCKS`` and
+``ROUTED_BLOCKS`` (token and routed blocks formed), ``precision.THREE_PASS``
+and ``THREE_PASS_DECLINED``.  A
 replay runs no Python and adds nothing to them.
 
 :func:`collect` reads the events' times; call it after a synchronize, so
